@@ -1,0 +1,209 @@
+"""Fused affinity: CUDA kernel wrapper and its plain PyTorch version.
+
+Port of ``mmmot_tpu/kernels/affinity_kernel.py`` (``pallas_affinity``,
+``build_affinity_params``).  For B frame pairs and the K score branches
+(fused, image, lidar), from the per-branch embeddings it computes the raw
+link scores, the dual-softmax ``link_norm`` and the v2 new/end logits.
+
+``fused_affinity`` launches ``csrc/affinity.cu`` for CUDA tensors and
+runs ``affinity_plain`` for CPU tensors; there is no other fallback.
+``affinity_plain`` repeats the kernel's arithmetic, rounding points
+included, with PyTorch ops that materialise the [B, K, N, N, D] pair
+tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict
+
+import torch
+
+from mmmot_tpu_torch.kernels.build import build
+from mmmot_tpu_torch.models.affinity import correlation_tensor
+from mmmot_tpu_torch.models.layers import BN_EPS
+from mmmot_tpu_torch.models.tracking_net import BRANCHES, AffinityOutput
+from mmmot_tpu_torch.ops.masking import masked_max, masked_softmax, pair_mask
+
+# (name, compute-dtype?) for every parameter, in launcher order.
+PARAM_SPEC = (("w1", True), ("b1", True), ("bn_mean", False),
+              ("bn_inv", False), ("bn_scale", False), ("bn_bias", False),
+              ("w2", True), ("b2", False),
+              ("wn1", True), ("wnp", False), ("bn1", False), ("wn2", True),
+              ("bn2", False),
+              ("we1", True), ("wep", False), ("be1", False), ("ew2", True),
+              ("eb2", False))
+
+
+def build_affinity_params(net, compute_dtype: torch.dtype
+                          ) -> Dict[str, torch.Tensor]:
+    """Stack the link heads of the branches (``BRANCHES`` order) and split
+    the new/end first Dense into its feature rows and its pooled-evidence
+    row.  Dense weights go to the compute dtype; BN terms and the scalar
+    biases stay float32.  Shapes: w1 [K, D, H], b1 / bn_* [K, H],
+    w2 [K, H, 1], b2 [K], wn1 / we1 [D, hh], wnp / wep [1, hh],
+    bn1 / be1 [hh], wn2 / ew2 [hh, 1], bn2 / eb2 [1]."""
+    mods = [getattr(net, f"affinity_{b}") for b in BRANCHES]
+    cdt, f32 = compute_dtype, torch.float32
+
+    def stack(fn, dt):
+        return torch.stack([fn(m) for m in mods]).to(dt).contiguous()
+
+    out = {
+        "w1": stack(lambda m: m.head_0.weight.t(), cdt),
+        "b1": stack(lambda m: m.head_0.bias, cdt),
+        "bn_mean": stack(lambda m: m.head_bn_0.running_mean, f32),
+        "bn_inv": stack(lambda m: torch.rsqrt(m.head_bn_0.running_var
+                                              + BN_EPS), f32),
+        "bn_scale": stack(lambda m: m.head_bn_0.weight, f32),
+        "bn_bias": stack(lambda m: m.head_bn_0.bias, f32),
+        "w2": stack(lambda m: m.head_out.weight.t(), cdt),
+        "b2": stack(lambda m: m.head_out.bias[0], f32),
+    }
+    for (k1, kp, k1b, k2, k2b), mlp in (
+            (("wn1", "wnp", "bn1", "wn2", "bn2"), net.new_end.new_mlp),
+            (("we1", "wep", "be1", "ew2", "eb2"), net.new_end.end_mlp)):
+        w = mlp.dense_0.weight.t()                       # [D + 1, hh]
+        out[k1] = w[:-1].to(cdt).contiguous()
+        out[kp] = w[-1:].to(f32).contiguous()
+        out[k1b] = mlp.dense_0.bias.to(f32).contiguous()
+        out[k2] = mlp.dense_1.weight.t().to(cdt).contiguous()
+        out[k2b] = mlp.dense_1.bias.to(f32).contiguous()
+    return {k: v.detach() for k, v in out.items()}
+
+
+def link_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor]):
+    """Raw link scores [B, N, N] (the kernel's first launch): per branch
+    |a_i - b_j| @ W1 (f32 accumulate, cast) + b1, eval BN in f32, ReLU,
+    . w2 + b2 in f32; summed over branches, masked, cast.
+
+    a, b [B, K, N, D] (branch 0 = fused) in the compute dtype; masks
+    [B, N] bool.
+    """
+    cdt = a.dtype
+    pm = pair_mask(mask_prev, mask_curr)
+    pair = correlation_tensor(a, b)                      # [B, K, N, N, D]
+    h0 = (torch.matmul(pair, p["w1"][None, :, None])
+          + p["b1"][None, :, None, None])
+    mean, inv, scale, shift = (p[k][None, :, None, None] for k in (
+        "bn_mean", "bn_inv", "bn_scale", "bn_bias"))
+    h = torch.relu(((h0.float() - mean) * inv * scale + shift).to(cdt))
+    score = torch.matmul(h.float(), p["w2"].float()[None, :, None])[..., 0]
+    score = score + p["b2"][None, :, None, None]         # [B, K, N, N]
+    return (score.sum(dim=1) * pm.float()).to(cdt)
+
+
+def heads_plain(link, a, b, mask_prev, mask_curr,
+                p: Dict[str, torch.Tensor]) -> AffinityOutput:
+    """Dual softmax and the v2 new/end heads from ``link`` (the kernel's
+    second launch), in the compute dtype of ``link``."""
+    cdt = link.dtype
+    pm = pair_mask(mask_prev, mask_curr)
+    row = masked_softmax(link, pm, dim=-1)
+    col = masked_softmax(link, pm, dim=-2)
+    norm = (0.5 * (row + col)).to(cdt)
+
+    def head(feat, pooled, w1, wp, b1, w2, b2, mask):
+        hf = (torch.matmul(feat.float(), w1.float())
+              + pooled[..., None] * wp[0] + b1)
+        hh = torch.relu(hf.to(cdt))
+        out = torch.matmul(hh.float(), w2.float())[..., 0] + b2[0]
+        return (out * mask.float()).to(cdt)
+
+    new = head(b[:, 0], masked_max(link, pm, dim=-2).float(), p["wn1"],
+               p["wnp"], p["bn1"], p["wn2"], p["bn2"], mask_curr)
+    end = head(a[:, 0], masked_max(link, pm, dim=-1).float(), p["we1"],
+               p["wep"], p["be1"], p["ew2"], p["eb2"], mask_prev)
+    return AffinityOutput(link, norm, new, end)
+
+
+def affinity_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor]
+                   ) -> AffinityOutput:
+    """The kernel's function in PyTorch ops (materialises the
+    [B, K, N, N, D] pair tensor); outputs in the compute dtype."""
+    link = link_plain(a, b, mask_prev, mask_curr, p)
+    return heads_plain(link, a, b, mask_prev, mask_curr, p)
+
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (first use in a checkout) and load ``csrc/affinity.cu``."""
+    lib = ctypes.CDLL(str(build("affinity")))
+    lib.mmmot_affinity.argtypes = ([ctypes.c_void_p] * 26
+                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.mmmot_affinity.restype = ctypes.c_int
+    lib.mmmot_affinity_max_n.argtypes = []
+    lib.mmmot_affinity_max_n.restype = ctypes.c_int
+    return lib
+
+
+def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor]
+                   ) -> AffinityOutput:
+    """Fused affinity for a batch of frame pairs.
+
+    CUDA tensors launch the CUDA kernel (and count one launch in
+    ``fused_affinity.launches``); CPU tensors run ``affinity_plain``.
+    Raises on any input the kernel does not take.
+    """
+    if a.device.type == "cpu":
+        return affinity_plain(a, b, mask_prev, mask_curr, params)
+    if a.device.type != "cuda":
+        raise ValueError(f"fused_affinity: unsupported device {a.device}")
+    B, K, N, D = a.shape
+    cdt = a.dtype
+    if cdt not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_affinity: dtype {cdt} not supported")
+    H = params["w1"].shape[-1]
+    hh = params["wn1"].shape[-1]
+    dev = a.device
+    _check("b", b, dev, cdt, (B, K, N, D))
+    _check("a", a, dev, cdt, (B, K, N, D))
+    _check("mask_prev", mask_prev, dev, torch.bool, (B, N))
+    _check("mask_curr", mask_curr, dev, torch.bool, (B, N))
+    shapes = {"w1": (K, D, H), "b1": (K, H), "bn_mean": (K, H),
+              "bn_inv": (K, H), "bn_scale": (K, H), "bn_bias": (K, H),
+              "w2": (K, H, 1), "b2": (K,), "wn1": (D, hh), "wnp": (1, hh),
+              "bn1": (hh,), "wn2": (hh, 1), "bn2": (1,), "we1": (D, hh),
+              "wep": (1, hh), "be1": (hh,), "ew2": (hh, 1), "eb2": (1,)}
+    for name, is_cdt in PARAM_SPEC:
+        _check(name, params[name], dev, cdt if is_cdt else torch.float32,
+               shapes[name])
+    lib = _library()
+    if not 0 < N <= lib.mmmot_affinity_max_n():
+        raise ValueError(f"fused_affinity: N={N} outside 1.."
+                         f"{lib.mmmot_affinity_max_n()}")
+    link = torch.empty((B, N, N), dtype=cdt, device=dev)
+    norm = torch.empty_like(link)
+    new = torch.empty((B, N), dtype=cdt, device=dev)
+    end = torch.empty_like(new)
+    if B == 0:
+        return AffinityOutput(link, norm, new, end)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.mmmot_affinity(
+        a.data_ptr(), b.data_ptr(), mask_prev.data_ptr(),
+        mask_curr.data_ptr(),
+        *(params[name].data_ptr() for name, _ in PARAM_SPEC),
+        link.data_ptr(), norm.data_ptr(), new.data_ptr(), end.data_ptr(),
+        B, K, N, D, H, hh, int(cdt == torch.bfloat16), stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_affinity: CUDA launch failed with error "
+                           f"{rc}")
+    fused_affinity.launches += 1
+    return AffinityOutput(link, norm, new, end)
+
+
+fused_affinity.launches = 0

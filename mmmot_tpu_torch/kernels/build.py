@@ -1,0 +1,65 @@
+"""Build the CUDA sources of ``csrc/`` with ``nvcc`` into shared
+libraries with a plain C interface (loaded with ``ctypes`` by the kernel
+wrappers).
+
+The library lands in ``build/mmmot_tpu_torch/`` at the repository root,
+named by a hash of the source and the flags, so a second run reuses it.
+It is written under a temporary name and renamed into place, so a
+concurrent reader never sees a half-written file.  Nothing here runs at
+import time: the first launch builds.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mmmot_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+build_logs: dict = {}      # name -> nvcc/ptxas output of this process's build
+
+
+def find_nvcc() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on ``PATH``, else the
+    toolkit's default location ``/usr/local/cuda/bin/nvcc``."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
+    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found: set CUDA_HOME to the CUDA toolkit or put nvcc on "
+        "PATH (the port's kernels are compiled on first use)")
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (if not built yet); returns the .so."""
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{out.name}.", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (exit "
+                               f"{proc.returncode}):\n{proc.stderr}")
+        build_logs[name] = proc.stderr
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out

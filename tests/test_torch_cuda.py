@@ -1,0 +1,89 @@
+"""Checks of the port that need an NVIDIA GPU (marker ``cuda``): the
+fused affinity CUDA kernel against its plain version, and CPU/GPU
+agreement of the tiny tracker.  They skip without a GPU.  This file
+imports neither JAX nor the JAX package, so it runs on the GPU machine:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import pytest
+import torch
+
+from mmmot_tpu_torch.config import tiny_debug
+from mmmot_tpu_torch.device import f32_parity
+from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
+                                              build_affinity_params,
+                                              fused_affinity)
+from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
+from mmmot_tpu_torch.tracker.sequence import track_sequence_from_frames
+from mmmot_tpu_torch.tracker.tracker import TrackingModule
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    return torch.device("cuda", 0)
+
+
+CASES = [(8, [5, 8, 1], [7, 2, 8]), (8, [0, 6], [4, 0]),
+         (13, [13, 9, 4], [11, 13, 0]), (64, [64, 40], [17, 64])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_matches_plain(gpu, dtype):
+    dt = getattr(torch, dtype)
+    net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
+    params = build_affinity_params(net, dt)
+    gen = torch.Generator(device=gpu).manual_seed(0)
+    for N, n_prev, n_curr in CASES:
+        B = len(n_prev)
+        a, b = (torch.randn((B, 3, N, 64), generator=gen, device=gpu).to(dt)
+                for _ in range(2))
+        ar = torch.arange(N, device=gpu)
+        mp = ar[None] < torch.tensor(n_prev, device=gpu)[:, None]
+        mc = ar[None] < torch.tensor(n_curr, device=gpu)[:, None]
+        before = fused_affinity.launches
+        with f32_parity():
+            got = fused_affinity(a, b, mp, mc, params)
+            want = affinity_plain(a, b, mp, mc, params)
+        torch.cuda.synchronize()
+        assert fused_affinity.launches == before + 1
+        # float32: sums in another order; bfloat16: a rounding flip moves
+        # a value by a bf16 ulp (2^-7 relative), a softmax by a few.
+        tol = 1e-4 if dtype == "float32" else 2.0 ** -5
+        for name, x, y in zip(got._fields, got, want):
+            scale = max(1.0, y.float().abs().max().item())
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= tol * scale, (N, name, err)
+        pm = mp[:, :, None] & mc[:, None, :]
+        assert (got.link[~pm] == 0).all()
+
+
+def test_tiny_tracking_cpu_equals_gpu(gpu):
+    cfg = tiny_debug()
+    gen = torch.Generator().manual_seed(3)
+    T, N, H, W, M = 6, 8, 96, 320, 512
+    images = torch.randint(0, 256, (T, H, W, 3), generator=gen,
+                           dtype=torch.uint8)
+    clouds = torch.rand((T, M, 4), generator=gen) * torch.tensor(
+        [50.0, 6.0, 68.0, 1.0]) + torch.tensor([-25.0, -3.0, 2.0, 0.0])
+    l = torch.rand((T, N), generator=gen) * (W - 60)
+    t = torch.rand((T, N), generator=gen) * (H - 30)
+    boxes = torch.stack([l, t, l + 50, t + 25], -1)
+    det_mask = torch.rand((T, N), generator=gen) < 0.7
+    proj = torch.tensor([[180.0, 0, W / 2, 0], [0, 180.0, H / 2, 0],
+                         [0, 0, 1, 0]])
+    ids = []
+    for dev in ("cpu", gpu):
+        net = init_random_(TrackingNet(cfg.model, device=dev), 1)
+        with torch.no_grad():
+            for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+                head.dense_1.bias.fill_(-3.0)
+        out = track_sequence_from_frames(
+            TrackingModule(net), images, clouds, boxes, det_mask, proj,
+            (32, 32), cfg.model.point.point_len, crop_window=128)
+        ids.append(out["ids"].cpu())
+    assert torch.equal(ids[0], ids[1])
