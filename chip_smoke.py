@@ -11,10 +11,14 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
 1. environment: torch, the GPU, and nvidia-smi's name and power limit;
    no CUDA device is an error;
 2. build: the CUDA kernels of ``mmmot_tpu_torch/csrc`` with nvcc;
+   then each kernel's registers, shared memory and spills (ptxas) and its
+   tensor-core instructions (cuobjdump -sass, where the toolkit has it);
 3. kernel vs plain: the fused affinity kernel against its plain PyTorch
-   version at the flagship shapes (B=16 frame pairs, K=3, N=32, D=H=512,
-   hh=256), in float32 and bfloat16, with an empty frame and a frame of 27
-   detections among them; kernel, plain and library timings;
+   version at the flagship shapes (K=3, N=32, D=H=512, hh=256) for B=16
+   and B=512 frame pairs, in float32 and bfloat16, with holed masks, an
+   empty frame and a frame of 27 detections among them; every masked link
+   must be exactly 0; kernel, per-launch, plain and library timings,
+   each as device time and as time per call with the host's work;
 4. reference: the ``tiny_debug`` model tracks a small sequence on the CPU
    (plain versions) and on the GPU (kernels) in float32 with the same
    seeded weights; the track ids must be equal;
@@ -42,7 +46,8 @@ from mmmot_tpu_torch.assoc.solve import associate
 from mmmot_tpu_torch.config import full_mmmot, tiny_debug
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels import build as kbuild
-from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
+from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
+                                              affinity_plain,
                                               build_affinity_params,
                                               fused_affinity, heads_plain)
 from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
@@ -56,6 +61,7 @@ T0 = time.time()
 # outside them, HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
+SPIN_HZ = 1.98e9           # H100 SXM boost clock: torch.cuda._sleep cycles
 # Main-path shapes (bench.py's workload, one sequence).
 T, N, H_IMG, W_IMG, M_PTS = 16, 32, 384, 1248, 16384
 CHUNK = 32
@@ -89,18 +95,35 @@ def nvidia_smi() -> str:
         else f"nvidia-smi: exit {proc.returncode}"
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` calls after one warm-up."""
+def cuda_ms(fn, reps: int):
+    """``(device_ms, call_ms)``: two mean times per call of ``fn`` over
+    ``reps`` back-to-back calls after one warm-up, each from CUDA events
+    around the calls.
+
+    - ``call_ms``: the calls alone.  Where the host's work per call
+      (Python checks, allocations, ctypes) takes longer than its device
+      work, the device waits for the host and that wait counts: this is
+      what a caller gets per call in a loop.
+    - ``device_ms``: the same calls behind a spin kernel that keeps the
+      device busy while the host enqueues them, so the events bracket the
+      calls' device work back to back and the host's work between calls
+      does not count."""
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+
+    def timed():
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
+
+    call = timed()
+    torch.cuda._sleep(int(min(2e-3 * reps * call * SPIN_HZ, 2.0 * SPIN_HZ)))
+    return timed(), call
 
 
 def max_err(x, y) -> float:
@@ -111,18 +134,25 @@ def scale_of(y) -> float:
     return max(1.0, y.float().abs().max().item())
 
 
-def affinity_inputs(dtype, gen, dev, D=512):
-    """B=16 frame pairs at the flagship shapes: pair 0 has an empty prev
-    frame, pair 1 27 valid detections on both sides, the rest 3..16."""
-    B = T
+def affinity_inputs(dtype, gen, dev, B, D=512):
+    """B frame pairs at the flagship shapes.  Counts are 3..16 per side;
+    every second pair has a random (holed) subset of the slots valid, the
+    others a prefix.  Pair 0 has an empty prev frame, pair 1 27 valid
+    detections on both sides, pair 2 alternating slots (even prev, odd
+    curr), pair 3 a single prev detection at the last slot."""
     a = torch.randn((B, 3, N, D), generator=gen, device=dev).to(dtype)
     b = torch.randn((B, 3, N, D), generator=gen, device=dev).to(dtype)
-    counts = torch.randint(3, 17, (2, B), generator=gen, device=dev)
-    counts[0, 0], counts[:, 1] = 0, 27
+    counts = torch.randint(3, 17, (2, B, 1), generator=gen, device=dev)
+    counts[0, 0] = 0
     ar = torch.arange(N, device=dev)
-    mp = ar[None] < counts[0][:, None]
-    mc = ar[None] < counts[1][:, None]
-    return a, b, mp, mc
+    rank = torch.rand((2, B, N), generator=gen, device=dev).argsort(-1) \
+        .argsort(-1)
+    holed = (torch.arange(B, device=dev) % 2 == 0)[None, :, None]
+    masks = torch.where(holed, rank < counts, ar < counts)
+    masks[:, 1] = ar < 27
+    masks[0, 2], masks[1, 2] = ar % 2 == 0, ar % 2 == 1
+    masks[0, 3] = ar == N - 1
+    return a, b, masks[0].contiguous(), masks[1].contiguous()
 
 
 def affinity_bound(mp, mc, params, dtype):
@@ -144,60 +174,116 @@ def affinity_bound(mp, mc, params, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def check_agreement(got, want, a, b, mp, mc, params, dtype, B):
+    """Kernel vs plain within the stated tolerance; every masked link
+    exactly 0.  Returns the max |kernel - plain| per output."""
+    errs = {k: max_err(x, y) for k, x, y in zip(got._fields, got, want)}
+    if dtype == torch.float32:
+        for k, x, y in zip(got._fields, got, want):
+            if errs[k] > TOL_F32 * scale_of(y):
+                raise AssertionError(
+                    f"B={B} float32 {k}: max |kernel - plain| {errs[k]} > "
+                    f"{TOL_F32} x {scale_of(y)}")
+    else:
+        if errs["link"] > TOL_BF16 * scale_of(want.link):
+            raise AssertionError(f"B={B} bfloat16 link: {errs['link']} > "
+                                 f"{TOL_BF16} x {scale_of(want.link)}")
+        staged = heads_plain(got.link, a, b, mp, mc, params)
+        for k in ("link_norm", "new", "end"):
+            e = max_err(getattr(got, k), getattr(staged, k))
+            if e > TOL_BF16 * scale_of(getattr(staged, k)):
+                raise AssertionError(
+                    f"B={B} bfloat16 {k} from the kernel's link: {e} > "
+                    f"{TOL_BF16} x {scale_of(getattr(staged, k))}")
+    masked = ~(mp[:, :, None] & mc[:, None, :])
+    if (got.link[masked] != 0).any():
+        raise AssertionError(f"B={B} {str(dtype)[6:]}: nonzero masked link")
+    return errs
+
+
 def check_kernel(net, dev):
-    """Phase 3: kernel vs plain in float32 and bfloat16; timings."""
+    """Phase 3: kernel vs plain in float32 and bfloat16, at B=16 (the
+    main path's window) and B=512 (one T=512 sequence of bench.py's
+    workload); kernel, per-launch, plain and library timings (device
+    time, and time per call with the host's work; ``cuda_ms``)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         params = build_affinity_params(net, dtype)
-        a, b, mp, mc = affinity_inputs(dtype, gen, dev)
-        with f32_parity(dtype == torch.float32):
-            got = fused_affinity(a, b, mp, mc, params)
-            want = affinity_plain(a, b, mp, mc, params)
-            torch.cuda.synchronize()
-            errs = {k: max_err(x, y) for k, x, y in
-                    zip(got._fields, got, want)}
-            if dtype == torch.float32:
-                for k, x, y in zip(got._fields, got, want):
-                    if errs[k] > TOL_F32 * scale_of(y):
-                        raise AssertionError(
-                            f"float32 {k}: max |kernel - plain| {errs[k]} > "
-                            f"{TOL_F32} x {scale_of(y)}")
-            else:
-                if errs["link"] > TOL_BF16 * scale_of(want.link):
-                    raise AssertionError(
-                        f"bfloat16 link: {errs['link']} > {TOL_BF16} x "
-                        f"{scale_of(want.link)}")
-                staged = heads_plain(got.link, a, b, mp, mc, params)
-                for k in ("link_norm", "new", "end"):
-                    e = max_err(getattr(got, k), getattr(staged, k))
-                    if e > TOL_BF16 * scale_of(getattr(staged, k)):
-                        raise AssertionError(
-                            f"bfloat16 {k} from the kernel's link: {e} > "
-                            f"{TOL_BF16} x {scale_of(getattr(staged, k))}")
-            for name, pm in (("empty", 0), ("n27", 1)):
-                bad = (got.link[pm][~(mp[pm][:, None] & mc[pm][None])] != 0)
-                if bad.any():
-                    raise AssertionError(f"{name} pair: nonzero masked link")
-            ms = cuda_ms(lambda: fused_affinity(a, b, mp, mc, params), 20)
-            plain_ms = cuda_ms(lambda: affinity_plain(a, b, mp, mc, params),
-                               5)
-            # Library yardstick for the dominant product only: one batched
-            # matmul [K, B*N*N, D] x [K, D, H] (no fused library call
-            # computes the whole function).
-            K, D, H = params["w1"].shape
-            pair = (a[:, :, :, None] - b[:, :, None]).abs()
-            pair = pair.permute(1, 0, 2, 3, 4).reshape(K, -1, D).contiguous()
-            lib_ms = cuda_ms(lambda: torch.bmm(pair, params["w1"]), 20)
-            del pair
-        bound_ms, bound_by = affinity_bound(mp, mc, params, dtype)
-        report[dtype] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=bound_ms,
-                             bound_by=bound_by)
-        stage(f"kernel {str(dtype)[6:]}: max err {errs} kernel {ms:.4f} ms "
-              f"plain {plain_ms:.4f} ms bmm {lib_ms:.4f} ms bound "
-              f"{bound_ms:.4f} ms ({bound_by})")
+        for B in (T, 512):
+            a, b, mp, mc = affinity_inputs(dtype, gen, dev, B)
+            with f32_parity(dtype == torch.float32):
+                got = fused_affinity(a, b, mp, mc, params)
+                want = affinity_plain(a, b, mp, mc, params)
+                torch.cuda.synchronize()
+                errs = check_agreement(got, want, a, b, mp, mc, params,
+                                       dtype, B)
+                # The plain version's broadcast matmul takes tens of GB at
+                # B=512: time it before the kernel's scratch can split the
+                # allocator's cached block.
+                del want
+                torch.cuda.empty_cache()
+                plain_ms, plain_call_ms = cuda_ms(
+                    lambda: affinity_plain(a, b, mp, mc, params), 3)
+                torch.cuda.empty_cache()
+                products, finish, _ = affinity_launches(a, b, mp, mc,
+                                                        params)
+                ms, call_ms = cuda_ms(
+                    lambda: fused_affinity(a, b, mp, mc, params), 20)
+                launch_ms = {"products": cuda_ms(products, 20)[0],
+                             "finish": cuda_ms(finish, 20)[0]}
+                # Library yardstick for the dominant product only: one
+                # batched matmul [K, B*N*N, D] x [K, D, H] over all pairs
+                # (no fused library call computes the whole function).
+                K, D, H = params["w1"].shape
+                pair = (a[:, :, :, None] - b[:, :, None]).abs()
+                pair = pair.permute(1, 0, 2, 3, 4).reshape(K, -1, D) \
+                    .contiguous()
+                lib_ms, lib_call_ms = cuda_ms(
+                    lambda: torch.bmm(pair, params["w1"]), 5)
+                del pair
+            bound_ms, bound_by = affinity_bound(mp, mc, params, dtype)
+            per_pair = mp.sum(1) * mc.sum(1)
+            pairs = int(per_pair.sum())
+            # Launch 1's blocks with work, computed from the masks (the
+            # kernel does not count them): one per 64 valid pairs and
+            # branch, and a head block per side with detections.
+            tiles = int(3 * ((per_pair + 63) // 64).sum()
+                        + mp.any(1).sum() + mc.any(1).sum())
+            report[dtype, B] = dict(
+                errs=errs, ms=ms, call_ms=call_ms, launch_ms=launch_ms,
+                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                library_ms=lib_ms, library_call_ms=lib_call_ms,
+                bound_ms=bound_ms, bound_by=bound_by, valid_pairs=pairs)
+            stage(f"kernel {str(dtype)[6:]} B={B} ({pairs} valid pairs of "
+                  f"{B * N * N}; {tiles} blocks with work by the masks): "
+                  f"max err {errs} kernel {ms:.4f} ms (products "
+                  f"{launch_ms['products']:.4f}, finish "
+                  f"{launch_ms['finish']:.4f}; per call with the host "
+                  f"{call_ms:.4f}) plain {plain_ms:.4f} ms (with the host "
+                  f"{plain_call_ms:.4f}) bmm {lib_ms:.4f} ms (with the host "
+                  f"{lib_call_ms:.4f}) bound {bound_ms:.4f} ms ({bound_by})")
+            del a, b, got
+            torch.cuda.empty_cache()
     return report
+
+
+def compiled_code():
+    """Registers, shared memory and spills of each kernel from the
+    ptxas log of this process's build, and the tensor-core instructions
+    (HMMA / HGMMA) in each kernel's SASS where cuobjdump is present."""
+    log = kbuild.build_logs.get("affinity")
+    ptxas = kbuild.ptxas_summary(log) if log else None
+    for name, info in (ptxas or {}).items():
+        stage(f"ptxas {name}: {info}")
+    sass = kbuild.disassemble(kbuild.build("affinity"))
+    if sass is None:
+        stage("cuobjdump: absent from the toolkit; SASS not counted")
+        return ptxas, None
+    counts = kbuild.sass_counts(sass)
+    for name, c in counts.items():
+        stage(f"sass {name}: {c}")
+    return ptxas, counts
 
 
 def synthetic_frames(gen, dev, T_, H, W, M, N_, count_lo, count_hi):
@@ -415,12 +501,21 @@ def main(argv=None) -> int:
     print(kbuild.build_logs.get("affinity", "(library reused)"),
           file=sys.stderr)
 
+    ptxas, sass = compiled_code()
+
     net = init_random_(TrackingNet(full_mmmot().model, device=dev), 0)
     kern = check_kernel(net, dev)
     reference_check(dev)
     run = main_path(net, dev, smi, profile)
 
-    bf = kern[torch.bfloat16]
+    def at(dtype, B):
+        r = kern[dtype, B]
+        return {k: r[k] for k in ("ms", "call_ms", "launch_ms", "plain_ms",
+                                  "plain_call_ms", "library_ms",
+                                  "library_call_ms", "bound_ms", "bound_by",
+                                  "valid_pairs", "errs")}
+
+    bf = kern[torch.bfloat16, T]
     entry = {
         "name": "fused_affinity", "route": "cuda",
         "source": "mmmot_tpu_torch/csrc/affinity.cu",
@@ -431,9 +526,15 @@ def main(argv=None) -> int:
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
         "library_ms": bf["library_ms"],
         "library_call": "torch.bmm [K, B*N*N, D] x [K, D, H] (the W1 "
-                        "product alone)",
-        "dtype": "bfloat16",
-        "float32": {k: v for k, v in kern[torch.float32].items()},
+                        "product alone, over all pairs)",
+        "dtype": "bfloat16", "frame_pairs": T,
+        "call_ms": bf["call_ms"], "plain_call_ms": bf["plain_call_ms"],
+        "library_call_ms": bf["library_call_ms"],
+        "launch_ms": bf["launch_ms"], "valid_pairs": bf["valid_pairs"],
+        "b512": at(torch.bfloat16, 512),
+        "float32": {"b16": at(torch.float32, T),
+                    "b512": at(torch.float32, 512)},
+        "ptxas": ptxas, "sass_tensor_core": sass,
     }
     print(json.dumps({"main_path": {
         "frames": T, "detections": run["n_valid"], "warm_ms": run["warm_ms"],

@@ -1,6 +1,6 @@
 // Fused association-cost kernel for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel mmmot_tpu/kernels/affinity_kernel.py
+// Replaces the Pallas TPU kernel mmmot_tpu/kernels/affinity_kernel.py:206
 // (pallas_affinity, body _kernel): for a batch of B frame pairs and K
 // branches, with prev/curr embeddings a, b [B, K, N, D],
 //
@@ -17,24 +17,68 @@
 // in the compute dtype is rounded to it here (T = float or bfloat16);
 // sums accumulate in f32.
 //
-// What bounds it on an H100: FLOPs = 2 B K N^2 (D H + H), 1.61 GFLOP per
-// frame pair at the flagship (K=3, N=32, D=H=512), 25.8 GFLOP at B=16,
-// against bytes of W1 (1.5 MB bf16) plus the embeddings (3.1 MB at B=16):
-// compute-bound, about 26 us at B=16 on the 989 TFLOP/s bf16 tensor cores.
+// What bounds it on an H100: operations over the VALID pairs.  The work
+// the masks ask for is 2 K n_p n_c (D H + H) for the links plus
+// 2 (n_p + n_c)(D hh + hh) for the heads, per frame pair; W1 (1.5 MB in
+// bf16) and the embeddings are read once.  At the flagship shapes that is
+// a few us on the bf16 tensor cores (chip_smoke.py: affinity_bound).
 //
-// Design (simple and correct first; the tensor-core version is later
-// work).  Launch 1, grid (B, ceil(N*N/64)): a block owns 64 (i, j) pairs of
-// one frame pair.  For each branch it builds the |a_i - b_j| tile in
-// shared memory 32 features at a time and streams the matching 32 x 64
-// tile of W1 from global memory (W1 is 512 KB per branch, more than a
-// block's shared memory, and stays L2-resident across blocks), keeping the
-// 64 x 64 hidden tile in registers (4 x 4 per thread, f32 FMA).  The
-// epilogue applies bias, BN, ReLU and the w2 dot for that hidden tile and
-// adds it into the pair's score, so the [N*N, H] hidden tensor never
-// reaches device memory; only `link` is written.  Launch 2, grid (B): one
-// block reads the N x N link matrix of a frame pair into shared memory and
-// computes the dual softmax, the row/column max pools and both heads (one
-// warp per detection, lanes over hidden units).
+// Design.  Two launches on the caller's stream; the wrapper allocates two
+// float32 scratch tensors, part [B, K, N, N] and hs [B, 2, N, hh].
+//
+// Launch 1 (products_kernel), grid (B, K*T + 2) with T = ceil(N*N/64),
+// 256 threads: every dense product, one 64-row tile per block.
+//  - Block (pb, k*T + tile) scores branch k for 64 valid pairs of frame
+//    pair pb.  It compacts the two masks with ballots into the lists of
+//    valid prev and curr slots (n_p, n_c entries) and takes the pair ids
+//    q = tile*64 + r < n_p*n_c, (i, j) = (prev[q / n_c], curr[q % n_c]):
+//    the (i, j) of each row are computed once per tile.  A tile with no
+//    valid pair exits at once, so no work is done for masked pairs, and no
+//    host sync is needed to size the grid.  It builds the 64 x D tile
+//    rnd(|a_i - b_j|) in shared memory once, with 16-byte loads, and
+//    reuses it for all H columns.  W1_k streams through a double buffer
+//    of shared-memory stages of 64 x NT, filled by cp.async, so the copy
+//    of the next stage overlaps this stage's product.  The epilogue of each
+//    NT-column tile applies rnd(rnd(acc) + b1), eval BN in f32 then rnd,
+//    ReLU and the f32 dot with w2, reduced over the columns with warp
+//    shuffles and shared memory; part[pb, k, i, j] = score_k + b2_k.
+//    Splitting the branches over blocks triples the blocks in flight for
+//    a short window.
+//  - Blocks (pb, K*T + h), h = 0 (new head, curr features) and 1 (end
+//    head, prev features), run the head's first Dense over the valid
+//    detections, feat[valid] @ W [n, D] x [D, hh], through the same tile
+//    and ring, and store the f32 sums into hs.
+//
+//   bfloat16: the products run on the tensor cores, mma.sync m16n8k16
+//   (bf16 in, f32 accumulate) with ldmatrix from padded, conflict-free
+//   shared tiles; 8 warps as 2 x 4 over a 64 x 128 output tile, the next
+//   k16 step's fragments loaded before this step's products issue.
+//   wgmma (m64n64k16, both operands from shared memory) is the path to
+//   the full tensor-core rate; a version with no-swizzle tiles and the
+//   same cp.async double buffer was right but slower at these shapes
+//   (PERF.md): it needs TMA, swizzled tiles and a warp-specialised
+//   pipeline to pay off.
+//   float32: the tensor cores have no full-f32 mode (TF32 keeps about
+//   three digits, which would break the f32 parity mode), so the products
+//   stay SIMT FMA on a 4 x 4 register tile per thread over a 64 x 64
+//   output tile; they share the valid-pair list, the once-per-branch pair
+//   tile and the cp.async ring.
+//
+// Launch 2 (finish_kernel), grid (B): per frame pair, link = cast(sum_k
+// part) at valid pairs and an exact 0 elsewhere (every element written
+// once, `link` is not zeroed by the wrapper), the dual softmax and the
+// max pools over it in shared memory, then the heads' epilogues from hs:
+// rnd(s + pooled * wp + b1) in f32, ReLU and the f32 dot with w2 (a warp
+// per detection, lanes over the hh hidden units), 0 for masked
+// detections.
+//
+// What this design does about the faults of the first (SIMT) kernel:
+// no tensor cores -> mma.sync in bf16; every pair computed -> a work
+// list of valid pairs; the pair tile rebuilt for each hidden tile -> once
+// per branch; W1 loaded synchronously -> a cp.async double buffer; launch 2 one
+// block per frame pair with a serial 512-long dot per lane -> the head
+// products are tiles of launch 1 over the valid detections only, and
+// launch 2 keeps only the O(N^2 + N hh) epilogues.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,10 +89,12 @@ namespace {
 
 constexpr float kNegInf = -1e9f;  // ops/masking.py NEG_INF (finite)
 constexpr int kThreads = 256;
-constexpr int kPairs = 64;        // pair rows per block (launch 1)
-constexpr int kHid = 64;          // hidden columns per register tile
-constexpr int kDepth = 32;        // features per shared-memory stage
-constexpr int kMaxN = 64;         // launch 2 holds N x N in shared memory
+constexpr int kRows = 64;         // pairs (launch 1) or detections per tile
+constexpr int kMaxN = 64;         // two ballot words per mask
+constexpr int kKT = 64;           // features per W stage
+constexpr int kStages = 2;        // W stages in flight (double buffer)
+constexpr int kPartLd = 17;       // row stride of the per-row partial sums
+constexpr int kFill = 8;          // 16-byte chunks in flight per thread
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -69,256 +115,657 @@ template <typename T> __device__ __forceinline__ float rnd(float x) {
   return to_f(from_f<T>(x));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-link_kernel(const T* __restrict__ a, const T* __restrict__ b,
-            const uint8_t* __restrict__ mp, const uint8_t* __restrict__ mc,
-            const T* __restrict__ w1, const T* __restrict__ b1,
-            const float* __restrict__ bn_mean,
-            const float* __restrict__ bn_inv,
-            const float* __restrict__ bn_scale,
-            const float* __restrict__ bn_bias,
-            const T* __restrict__ w2, const float* __restrict__ b2,
-            T* __restrict__ link, int K, int N, int D, int H) {
-  __shared__ __align__(16) float pair_s[kDepth][kPairs];
-  __shared__ __align__(16) float w_s[kDepth][kHid];
-  __shared__ float part_s[kPairs][kHid / 4 + 1];
-  __shared__ float score_s[kPairs];
-  __shared__ float total_s[kPairs];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
 
-  const int pb = blockIdx.x;
-  const int p0 = blockIdx.y * kPairs;
-  const int NN = N * N;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;  // hidden columns tx*4 .. tx*4+3
-  const int ty = tid / 16;  // pair rows ty*4 .. ty*4+3
+// 16-byte asynchronous copy global -> shared; src_bytes 0 fills zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-  if (tid < kPairs) total_s[tid] = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const T* ak = a + ((long)pb * K + k) * N * D;
-    const T* bk = b + ((long)pb * K + k) * N * D;
-    const T* w1k = w1 + (long)k * D * H;
-    if (tid < kPairs) score_s[tid] = 0.f;
-    for (int h0 = 0; h0 < H; h0 += kHid) {
-      float acc[4][4];
+// ldmatrix at a shared-memory address (bytes).
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// The block-level product engines: a 64-row A tile (pairs or detections,
+// D features) in shared memory times an NT-column stage of W from the
+// ring, accumulated in registers.  Eng<T>::fill builds the A tile:
+// rnd(|a_i - b_j|) for rows with a b row, the a row itself without one,
+// zeros for rows whose index is negative and for features >= D.  The
+// epilogue takes f(col), which loads that column's parameters once and
+// returns g(row, acc), the f32 contribution of one product element.
+
+template <typename T> struct Eng;
+
+template <> struct Eng<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+  static constexpr int kNT = 128;       // output columns per tile
+  static constexpr int kWLd = kNT + 8;  // padded W-stage row (elements)
+  static constexpr int kParts = 4;      // column groups per row (warps)
+  static constexpr int kStageElems = kKT * kWLd;
+  struct Acc { float c[2][4][4]; };
+
+  __host__ __device__ static int a_ld(int Dp) { return Dp + 8; }
+  __host__ __device__ static size_t a_bytes(int Dp) {
+    return (size_t)kRows * a_ld(Dp) * sizeof(T);
+  }
+
+  __device__ static void fill(T* A, int Dp, int D, const T* abase,
+                              const int* ri, const T* bbase, const int* rj) {
+    const int lda = a_ld(Dp), chunks = Dp / 8, total = kRows * chunks;
+    for (int c0 = threadIdx.x; c0 < total; c0 += kFill * kThreads) {
+      uint4 av[kFill], bv[kFill];  // kFill chunks' loads in flight at once
+#pragma unroll
+      for (int u = 0; u < kFill; ++u) {
+        const int c = c0 + u * kThreads, r = c / chunks, d = (c % chunks) * 8;
+        av[u] = bv[u] = make_uint4(0u, 0u, 0u, 0u);
+        if (c < total && ri[r] >= 0 && d < D) {
+          av[u] = *reinterpret_cast<const uint4*>(abase + (long)ri[r] * D + d);
+          if (bbase != nullptr)
+            bv[u] = *reinterpret_cast<const uint4*>(bbase + (long)rj[r] * D + d);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFill; ++u) {
+        const int c = c0 + u * kThreads, r = c / chunks, d = (c % chunks) * 8;
+        if (c >= total) continue;
+        if (bbase != nullptr) {
+          __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&av[u]);
+          const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&bv[u]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 xa = __bfloat1622float2(o[e]);
+            const float2 xb = __bfloat1622float2(y[e]);
+            // |rnd(x)| == rnd(|x|): round-to-nearest-even is symmetric.
+            o[e] = __floats2bfloat162_rn(fabsf(xa.x - xb.x), fabsf(xa.y - xb.y));
+          }
+        }
+        *reinterpret_cast<uint4*>(A + r * lda + d) = av[u];
+      }
+    }
+  }
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc.c[m][n][e] = 0.f;
+  }
+
+  // Fragments of one k16 step: A for the warp's two m16 tiles (rows
+  // wm*32.. of A, shared address a_addr of this lane's row and column),
+  // B for its four n8 tiles (w_addr likewise in the W stage).
+  __device__ static void frags(uint32_t (*af)[4], uint32_t (*bf)[2],
+                               unsigned a_addr, int lda, unsigned w_addr) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) ldsm_x4(af[m], a_addr + m * 16 * lda * 2);
+#pragma unroll
+    for (int np = 0; np < 2; ++np) {
+      uint32_t r[4];
+      ldsm_x4_t(r, w_addr + np * 16 * 2);
+      bf[2 * np][0] = r[0];
+      bf[2 * np][1] = r[1];
+      bf[2 * np + 1][0] = r[2];
+      bf[2 * np + 1][1] = r[3];
+    }
+  }
+
+  // The stage's k16 steps, with the next step's fragments loaded before
+  // this step's products are issued.
+  __device__ static void mma(Acc& acc, const T* A, int Dp, const T* W,
+                             int d0) {
+    constexpr int kSteps = kKT / 16;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int wm = warp / 4, wn = warp % 4, lda = a_ld(Dp);
+    const unsigned a_addr = smem_addr(
+        A + (wm * 32 + lane % 16) * lda + d0 + (lane / 16) * 8);
+    const unsigned w_addr = smem_addr(
+        W + (lane % 8 + ((lane / 8) % 2) * 8) * kWLd + wn * 32 +
+        (lane / 16) * 8);
+    uint32_t af[2][2][4], bf[2][4][2];
+    frags(af[0], bf[0], a_addr, lda, w_addr);
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      if (s + 1 < kSteps)
+        frags(af[(s + 1) % 2], bf[(s + 1) % 2], a_addr + (s + 1) * 16 * 2,
+              lda, w_addr + (s + 1) * 16 * kWLd * 2);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+          mma_bf16(acc.c[m][n], af[s % 2][m], bf[s % 2][n]);
+    }
+  }
+
+  // part_s[row][warp column group] = sum over this tile's columns < Nc of
+  // f(col)(row, acc).
+  template <class F>
+  __device__ static void epilogue(const Acc& acc, int n0, int Nc,
+                                  float (*part_s)[kPartLd], F f) {
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+    const int wm = warp / 4, wn = warp % 4, g = lane / 4, qd = lane % 4;
+    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = n0 + wn * 32 + n * 8 + qd * 2 + e;
+        if (col >= Nc) continue;
+        const auto at = f(col);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int half = 0; half < 2; ++half)
+            part[m][half] += at(wm * 32 + m * 16 + half * 8 + g,
+                                acc.c[m][n][half * 2 + e]);
+      }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float v = part[m][half];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (qd == 0) part_s[wm * 32 + m * 16 + half * 8 + g][wn] = v;
+      }
+  }
+};
+
+template <> struct Eng<float> {
+  using T = float;
+  static constexpr int kNT = 64;
+  static constexpr int kWLd = kNT;
+  static constexpr int kParts = 16;     // column groups per row (tx)
+  static constexpr int kStageElems = kKT * kWLd;
+  struct Acc { float c[4][4]; };
+
+  // A is stored transposed, [Dp][64], for float4 reads along the rows.
+  __host__ __device__ static size_t a_bytes(int Dp) {
+    return (size_t)Dp * kRows * sizeof(T);
+  }
+
+  __device__ static void fill(T* A, int Dp, int D, const T* abase,
+                              const int* ri, const T* bbase, const int* rj) {
+    const int total = kRows * (Dp / 4);
+    for (int c0 = threadIdx.x; c0 < total; c0 += kFill * kThreads) {
+      float4 av[kFill], bv[kFill];
+#pragma unroll
+      for (int u = 0; u < kFill; ++u) {
+        const int c = c0 + u * kThreads, r = c % kRows, d = (c / kRows) * 4;
+        av[u] = bv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (c < total && ri[r] >= 0 && d < D) {
+          av[u] = *reinterpret_cast<const float4*>(abase + (long)ri[r] * D + d);
+          if (bbase != nullptr)
+            bv[u] = *reinterpret_cast<const float4*>(bbase + (long)rj[r] * D + d);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFill; ++u) {
+        const int c = c0 + u * kThreads, r = c % kRows, d = (c / kRows) * 4;
+        if (c >= total) continue;
+        float4 v = av[u];
+        if (bbase != nullptr)
+          v = make_float4(fabsf(v.x - bv[u].x), fabsf(v.y - bv[u].y),
+                          fabsf(v.z - bv[u].z), fabsf(v.w - bv[u].w));
+        A[(d + 0) * kRows + r] = v.x;
+        A[(d + 1) * kRows + r] = v.y;
+        A[(d + 2) * kRows + r] = v.z;
+        A[(d + 3) * kRows + r] = v.w;
+      }
+    }
+  }
+
+  __device__ static void zero(Acc& acc) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc.c[r][c] = 0.f;
+  }
+
+  __device__ static void mma(Acc& acc, const T* A, int, const T* W, int d0) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int dd = 0; dd < kKT; ++dd) {
+      const float4 av = *reinterpret_cast<const float4*>(&A[(d0 + dd) * kRows + ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&W[dd * kWLd + tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
-
-      for (int d0 = 0; d0 < D; d0 += kDepth) {
-        __syncthreads();  // the previous stage's tiles are consumed
-        for (int e = tid; e < kPairs * kDepth; e += kThreads) {
-          const int p = e % kPairs, dd = e / kPairs;
-          const int gp = p0 + p, d = d0 + dd;
-          float v = 0.f;
-          if (gp < NN && d < D) {
-            const int i = gp / N, j = gp % N;
-            v = fabsf(rnd<T>(to_f(ak[i * D + d]) - to_f(bk[j * D + d])));
-          }
-          pair_s[dd][p] = v;
-        }
-        for (int e = tid; e < kDepth * kHid; e += kThreads) {
-          const int hh = e % kHid, dd = e / kHid;
-          const int h = h0 + hh, d = d0 + dd;
-          w_s[dd][hh] = (h < H && d < D) ? to_f(w1k[(long)d * H + h]) : 0.f;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int dd = 0; dd < kDepth; ++dd) {
-          const float4 av = *reinterpret_cast<const float4*>(&pair_s[dd][ty * 4]);
-          const float4 bv = *reinterpret_cast<const float4*>(&w_s[dd][tx * 4]);
-          const float ar[4] = {av.x, av.y, av.z, av.w};
-          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) acc[r][c] = fmaf(ar[r], br[c], acc[r][c]);
-        }
-      }
-
-      // Epilogue for this hidden tile: bias (compute dtype), eval BN in
-      // f32 (not folded), ReLU, and the partial h . w2 in f32.
-      float part[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int h = h0 + tx * 4 + c;
-        if (h >= H) continue;
-        const long kh = (long)k * H + h;
-        const float bias1 = to_f(b1[kh]);
-        const float mean = bn_mean[kh], inv = bn_inv[kh];
-        const float scale = bn_scale[kh], shift = bn_bias[kh];
-        const float wout = to_f(w2[kh]);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float hd = rnd<T>(rnd<T>(acc[r][c]) + bias1);
-          const float hn = rnd<T>((hd - mean) * inv * scale + shift);
-          part[r] += fmaxf(hn, 0.f) * wout;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) part_s[ty * 4 + r][tx] = part[r];
-      __syncthreads();
-      if (tid < kPairs) {
-        float s = 0.f;
-        for (int t = 0; t < kHid / 4; ++t) s += part_s[tid][t];
-        score_s[tid] += s;
-      }
-    }
-    if (tid < kPairs) total_s[tid] += score_s[tid] + b2[k];
-  }
-  if (tid < kPairs) {
-    const int gp = p0 + tid;
-    if (gp < NN) {
-      const int i = gp / N, j = gp % N;
-      const bool ok = mp[pb * N + i] && mc[pb * N + j];
-      link[(long)pb * NN + gp] = from_f<T>(ok ? total_s[tid] : 0.f);
+        for (int c = 0; c < 4; ++c) acc.c[r][c] = fmaf(ar[r], br[c], acc.c[r][c]);
     }
   }
-}
 
-// One v2 head for detection n of frame pair pb, computed by one warp:
-// relu(feat . W1 + pooled * wp + b1) . w2 + b2, masked.
+  template <class F>
+  __device__ static void epilogue(const Acc& acc, int n0, int Nc,
+                                  float (*part_s)[kPartLd], F f) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+    float part[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int col = n0 + tx * 4 + c;
+      if (col >= Nc) continue;
+      const auto at = f(col);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) part[r] += at(ty * 4 + r, acc.c[r][c]);
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) part_s[ty * 4 + r][tx] = part[r];
+  }
+};
+
+// Stage of W [D, Nc] (row-major), features d0.. d0+kKT, columns n0..
+// n0+NT, into `dst` by cp.async; out-of-range chunks are zero-filled.
+// Both engines have 16 chunks of 16 bytes per stage row.
 template <typename T>
-__device__ float head_one(const T* __restrict__ feat, float pooled,
-                          const T* __restrict__ w1, const float* __restrict__ wp,
-                          const float* __restrict__ hb1,
-                          const T* __restrict__ hw2, float hb2, int D, int HH) {
-  const int lane = threadIdx.x % 32;
-  float part = 0.f;
-  for (int h = lane; h < HH; h += 32) {
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(to_f(feat[d]), to_f(w1[(long)d * HH + h]), s);
-    const float hf = s + pooled * wp[h] + hb1[h];
-    part += fmaxf(rnd<T>(hf), 0.f) * to_f(hw2[h]);
+__device__ void load_stage(T* dst, const T* W, int D, int Nc, int d0,
+                           int n0) {
+  using E = Eng<T>;
+  constexpr int kPer = 16 / sizeof(T);
+  constexpr int kChunksRow = E::kNT / kPer;
+  for (int c = threadIdx.x; c < kKT * kChunksRow; c += kThreads) {
+    const int r = c / kChunksRow, col = (c % kChunksRow) * kPer;
+    const int d = d0 + r, n = n0 + col;
+    const bool ok = d < D && n < Nc;
+    cp_async16(dst + r * E::kWLd + col, ok ? W + (long)d * Nc + n : W,
+               ok ? 16 : 0);
   }
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
-  return part + hb2;
 }
 
+template <typename T> __host__ __device__ size_t gemm_smem_bytes(int D) {
+  return Eng<T>::a_bytes(round_up(D, kKT)) +
+         (size_t)kStages * Eng<T>::kStageElems * sizeof(T);
+}
+
+// The block computes A [64, D] x W [D, Nc] tile by tile and reduces each
+// row over the columns:
+//   fill(A)          builds A (all threads; no barrier inside), while the
+//                    ring's first W stages are in flight,
+//   epi(col)(row, acc)  the f32 contribution of one product element,
+//   done(row, sum)   called by thread `row` (< 64) with the row's sum over
+//                    all Nc columns.
+// W stages stream through a ring of kStages across the column tiles.
+// `smem` holds the A tile and the ring (gemm_smem_bytes).
+template <typename T, class Fill, class Epi, class Done>
+__device__ void row_gemm(const T* w, int D, int Nc, unsigned char* smem,
+                         float (*part_s)[kPartLd], Fill fill, Epi epi,
+                         Done done) {
+  using E = Eng<T>;
+  const int Dp = round_up(D, kKT);
+  T* A = reinterpret_cast<T*>(smem);
+  T* ring = reinterpret_cast<T*>(smem + E::a_bytes(Dp));
+  const int n_kt = Dp / kKT, total = (Nc + E::kNT - 1) / E::kNT * n_kt;
+  const int tid = threadIdx.x;
+
+  auto issue = [&](int t) {
+    if (t < total)
+      load_stage<T>(ring + (t % kStages) * E::kStageElems, w, D, Nc,
+                    (t % n_kt) * kKT, (t / n_kt) * E::kNT);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+  };
+  for (int t = 0; t < kStages - 1; ++t) issue(t);
+  fill(A);
+
+  typename E::Acc acc;
+  float rowsum = 0.f;
+  for (int t = 0; t < total; ++t) {
+    const int kt = t % n_kt;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage t and A visible; stage t-1 consumed
+    issue(t + kStages - 1);
+    if (kt == 0) E::zero(acc);
+    E::mma(acc, A, Dp, ring + (t % kStages) * E::kStageElems, kt * kKT);
+    if (kt == n_kt - 1) {
+      E::epilogue(acc, (t / n_kt) * E::kNT, Nc, part_s, epi);
+      __syncthreads();
+      if (tid < kRows) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < E::kParts; ++q) s += part_s[tid][q];
+        rowsum += s;
+      }
+    }
+  }
+  cp_async_wait<0>();
+  if (tid < kRows) done(tid, rowsum);
+}
+
+// Warps 0 and 1 compact mask 0 and mask 1 (N <= 64 bytes each) into
+// lists of valid slots (ascending) and their counts.
+__device__ void compact_masks(const uint8_t* m0, const uint8_t* m1, int N,
+                              int (*list_s)[kMaxN], int* count_s) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp > 1) return;
+  const uint8_t* m = warp == 0 ? m0 : m1;
+  const unsigned lo = __ballot_sync(0xffffffffu, lane < N && m[lane] != 0);
+  const unsigned hi =
+      __ballot_sync(0xffffffffu, lane + 32 < N && m[lane + 32] != 0);
+  const unsigned below = (1u << lane) - 1u;
+  if (lo >> lane & 1u) list_s[warp][__popc(lo & below)] = lane;
+  if (hi >> lane & 1u) list_s[warp][__popc(lo) + __popc(hi & below)] = lane + 32;
+  if (lane == 0) count_s[warp] = __popc(lo) + __popc(hi);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+products_kernel(const T* __restrict__ a, const T* __restrict__ b,
+                const uint8_t* __restrict__ mp, const uint8_t* __restrict__ mc,
+                const T* __restrict__ w1, const T* __restrict__ b1,
+                const float* __restrict__ bn_mean,
+                const float* __restrict__ bn_inv,
+                const float* __restrict__ bn_scale,
+                const float* __restrict__ bn_bias,
+                const T* __restrict__ w2, const float* __restrict__ b2,
+                const T* __restrict__ wn1, const T* __restrict__ we1,
+                float* __restrict__ part, float* __restrict__ hs, int K,
+                int N, int D, int H, int HH) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float part_s[kRows][kPartLd];
+  __shared__ int list_s[2][kMaxN];
+  __shared__ int count_s[2];
+  __shared__ int ri_s[kRows], rj_s[kRows];
+
+  const int pb = blockIdx.x, tid = threadIdx.x, NN = N * N;
+  const int tiles = (NN + kRows - 1) / kRows;
+  const int Dp = round_up(D, kKT);
+
+  if ((int)blockIdx.y < K * tiles) {
+    // Branch k's scores for 64 valid pairs.
+    const int k = blockIdx.y / tiles, q0 = (blockIdx.y % tiles) * kRows;
+    compact_masks(mp + pb * N, mc + pb * N, N, list_s, count_s);
+    __syncthreads();
+    const int n_c = count_s[1], n_pairs = count_s[0] * n_c;
+    if (q0 >= n_pairs) return;  // block-uniform: no valid pair here
+    if (tid < kRows) {
+      const int q = q0 + tid;
+      const bool ok = q < n_pairs;
+      ri_s[tid] = ok ? list_s[0][q / n_c] : -1;
+      rj_s[tid] = ok ? list_s[1][q % n_c] : -1;
+    }
+    __syncthreads();
+    const long off = ((long)pb * K + k) * N * D;
+    const T* b1k = b1 + (long)k * H;
+    const T* w2k = w2 + (long)k * H;
+    const float* meank = bn_mean + (long)k * H;
+    const float* invk = bn_inv + (long)k * H;
+    const float* scalek = bn_scale + (long)k * H;
+    const float* shiftk = bn_bias + (long)k * H;
+    float* out = part + ((long)pb * K + k) * NN;
+    const float bias2 = b2[k];
+    row_gemm<T>(
+        w1 + (long)k * D * H, D, H, smem, part_s,
+        [&](T* A) { Eng<T>::fill(A, Dp, D, a + off, ri_s, b + off, rj_s); },
+        [&](int h) {
+          const float bias1 = to_f(b1k[h]), mean = meank[h], inv = invk[h];
+          const float scale = scalek[h], shift = shiftk[h];
+          const float wout = to_f(w2k[h]);
+          return [=](int, float acc) {
+            const float hd = rnd<T>(rnd<T>(acc) + bias1);
+            const float hn = rnd<T>((hd - mean) * inv * scale + shift);
+            return fmaxf(hn, 0.f) * wout;
+          };
+        },
+        [&](int r, float s) {
+          if (ri_s[r] >= 0) out[ri_s[r] * N + rj_s[r]] = s + bias2;
+        });
+    return;
+  }
+
+  // Head h's first Dense over the valid detections: h = 0 new (curr
+  // features, curr mask), h = 1 end (prev features, prev mask).  Branch 0
+  // (fused) feeds both.
+  const int h = blockIdx.y - K * tiles;
+  const uint8_t* own = (h == 0 ? mc : mp) + pb * N;
+  compact_masks(own, own, N, list_s, count_s);
+  __syncthreads();
+  const int n_own = count_s[0];
+  if (n_own == 0) return;
+  if (tid < kRows) ri_s[tid] = tid < n_own ? list_s[0][tid] : -1;
+  __syncthreads();
+  const T* feat = (h == 0 ? b : a) + (long)pb * K * N * D;
+  float* hsb = hs + ((long)pb * 2 + h) * N * HH;
+  const int* ri = ri_s;
+  row_gemm<T>(
+      h == 0 ? wn1 : we1, D, HH, smem, part_s,
+      [&](T* A) { Eng<T>::fill(A, Dp, D, feat, ri_s, nullptr, nullptr); },
+      [=](int col) {
+        return [=](int r, float s) {
+          if (ri[r] >= 0) hsb[(long)ri[r] * HH + col] = s;
+          return 0.f;
+        };
+      },
+      [](int, float) {});
+}
+
+// Launch 2: link, its dual softmax and max pools, and the heads'
+// epilogues, for frame pair blockIdx.x.  A warp per row (then per
+// column) of the softmax, lanes over its entries; a warp per valid
+// detection of the heads, lanes over the hidden units.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-norm_heads_kernel(const T* __restrict__ link, const T* __restrict__ a,
-                  const T* __restrict__ b, const uint8_t* __restrict__ mp,
-                  const uint8_t* __restrict__ mc,
-                  const T* __restrict__ wn1, const float* __restrict__ wnp,
-                  const float* __restrict__ bn1, const T* __restrict__ wn2,
-                  const float* __restrict__ bn2,
-                  const T* __restrict__ we1, const float* __restrict__ wep,
-                  const float* __restrict__ be1, const T* __restrict__ ew2,
-                  const float* __restrict__ eb2,
-                  T* __restrict__ norm, T* __restrict__ new_out,
-                  T* __restrict__ end_out, int K, int N, int D, int HH) {
-  __shared__ float link_s[kMaxN * kMaxN];
-  __shared__ float row_s[kMaxN * kMaxN];
-  __shared__ float rowbest_s[kMaxN], colbest_s[kMaxN];
-  __shared__ float mp_s[kMaxN], mc_s[kMaxN];
+finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
+              const uint8_t* __restrict__ mp, const uint8_t* __restrict__ mc,
+              const float* __restrict__ wnp, const float* __restrict__ bn1,
+              const T* __restrict__ wn2, const float* __restrict__ bn2,
+              const float* __restrict__ wep, const float* __restrict__ be1,
+              const T* __restrict__ ew2, const float* __restrict__ eb2,
+              T* __restrict__ link, T* __restrict__ norm,
+              T* __restrict__ new_out, T* __restrict__ end_out, int K, int N,
+              int HH) {
+  constexpr int kLd = kMaxN + 1;  // conflict-free rows and columns
+  __shared__ float link_s[kMaxN * kLd];
+  __shared__ float row_s[kMaxN * kLd];
+  __shared__ float best_s[2][kMaxN];  // column (new) and row (end) pools
+  __shared__ int list_s[2][kMaxN];
+  __shared__ int count_s[2];
 
-  const int pb = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int NN = N * N;
+  const int pb = blockIdx.x, tid = threadIdx.x, NN = N * N;
+  const int warp = tid / 32, lane = tid % 32, n_warps = kThreads / 32;
   const float neg = rnd<T>(kNegInf);
   const float tiny = rnd<T>(1e-30f);
-  for (int e = tid; e < NN; e += blockDim.x) link_s[e] = to_f(link[(long)pb * NN + e]);
-  for (int n = tid; n < N; n += blockDim.x) {
-    mp_s[n] = mp[pb * N + n] ? 1.f : 0.f;
-    mc_s[n] = mc[pb * N + n] ? 1.f : 0.f;
+  __shared__ bool mpb[kMaxN], mcb[kMaxN];
+  compact_masks(mc + pb * N, mp + pb * N, N, list_s, count_s);  // curr, prev
+  for (int n = tid; n < N; n += kThreads) {
+    mpb[n] = mp[pb * N + n] != 0;
+    mcb[n] = mc[pb * N + n] != 0;
+  }
+  __syncthreads();
+  // link = cast(sum over branches, in branch order) at valid pairs, an
+  // exact 0 elsewhere.  A thread's elements are loaded together, and
+  // unconditionally so that the loads do not wait on the masks (scratch
+  // that launch 1 left unwritten is discarded).
+  constexpr int kPer = kMaxN * kMaxN / kThreads;
+  float v[kPer];
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) v[u] = 0.f;
+  for (int k = 0; k < K; ++k) {
+    const float* pk = part + ((long)pb * K + k) * NN;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (tid + u * kThreads < NN) v[u] += pk[tid + u * kThreads];
+  }
+#pragma unroll
+  for (int u = 0; u < kPer; ++u) {
+    const int e = tid + u * kThreads, i = e / N, j = e % N;
+    if (e >= NN) break;
+    const T lv = from_f<T>(mpb[i] && mcb[j] ? v[u] : 0.f);
+    link[(long)pb * NN + e] = lv;
+    link_s[i * kLd + j] = to_f(lv);
   }
   __syncthreads();
 
-  // Row softmax and row max-pool (thread per prev row i).
-  for (int i = tid; i < N; i += blockDim.x) {
-    float mx = -INFINITY, best = -INFINITY;
-    for (int j = 0; j < N; ++j) {
-      const bool ok = mp_s[i] * mc_s[j] > 0.f;
-      const float lg = ok ? link_s[i * N + j] : neg;
-      mx = fmaxf(mx, lg);
-      if (ok) best = fmaxf(best, lg);
+  // Masked softmax of lines l and l + 8 (rows if by_row, else columns;
+  // a line >= N is skipped) of the link matrix into out_s, and their
+  // maxima over the valid entries into best (0 when none is valid).
+  // Lanes take entries lane and lane + 32; the two lines' shuffle chains
+  // interleave.
+  auto lines = [&](int l, bool by_row, float* out_s, float* best) {
+    float lg[2][2], pm[2][2], mx[2], top[2], ex[2][2], den[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int lq = l + 8 * q;
+      const bool own = lq < N && (by_row ? mpb[lq] : mcb[lq]);
+      mx[q] = top[q] = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = lane + 32 * u;
+        const bool in = x < N;
+        const bool ok = in && own && (by_row ? mcb[x] : mpb[x]);
+        pm[q][u] = ok ? 1.f : 0.f;
+        lg[q][u] = ok ? (by_row ? link_s[lq * kLd + x] : link_s[x * kLd + lq])
+                      : neg;
+        if (in) mx[q] = fmaxf(mx[q], lg[q][u]);
+        if (ok) top[q] = fmaxf(top[q], lg[q][u]);
+      }
     }
-    rowbest_s[i] = best == -INFINITY ? 0.f : best;
-    float den = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float pm = mp_s[i] * mc_s[j];
-      const float lg = pm > 0.f ? link_s[i * N + j] : neg;
-      den += rnd<T>(expf(rnd<T>(lg - mx))) * pm;
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], off));
+        top[q] = fmaxf(top[q], __shfl_xor_sync(0xffffffffu, top[q], off));
+      }
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      den[q] = 0.f;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        ex[q][u] = rnd<T>(expf(rnd<T>(lg[q][u] - mx[q])));
+        den[q] += ex[q][u] * pm[q][u];
+      }
     }
-    den = fmaxf(rnd<T>(den), tiny);
-    for (int j = 0; j < N; ++j) {
-      const float pm = mp_s[i] * mc_s[j];
-      const float lg = pm > 0.f ? link_s[i * N + j] : neg;
-      row_s[i * N + j] = rnd<T>(rnd<T>(expf(rnd<T>(lg - mx))) * pm / den);
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+        den[q] += __shfl_xor_sync(0xffffffffu, den[q], off);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int lq = l + 8 * q;
+      if (lq >= N) continue;
+      const float dq = fmaxf(rnd<T>(den[q]), tiny);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int x = lane + 32 * u;
+        if (x < N)
+          out_s[by_row ? lq * kLd + x : x * kLd + lq] =
+              rnd<T>(ex[q][u] * pm[q][u] / dq);
+      }
+      if (lane == 0) best[lq] = top[q] == -INFINITY ? 0.f : top[q];
     }
-  }
-  __syncthreads();  // rows read; column threads overwrite link_s below
-  // Column softmax and column max-pool (thread per curr column j).
-  for (int j = tid; j < N; j += blockDim.x) {
-    float mx = -INFINITY, best = -INFINITY;
-    for (int i = 0; i < N; ++i) {
-      const bool ok = mp_s[i] * mc_s[j] > 0.f;
-      const float lg = ok ? link_s[i * N + j] : neg;
-      mx = fmaxf(mx, lg);
-      if (ok) best = fmaxf(best, lg);
-    }
-    colbest_s[j] = best == -INFINITY ? 0.f : best;
-    float den = 0.f;
-    for (int i = 0; i < N; ++i) {
-      const float pm = mp_s[i] * mc_s[j];
-      const float lg = pm > 0.f ? link_s[i * N + j] : neg;
-      den += rnd<T>(expf(rnd<T>(lg - mx))) * pm;
-    }
-    den = fmaxf(rnd<T>(den), tiny);
-    for (int i = 0; i < N; ++i) {
-      const float pm = mp_s[i] * mc_s[j];
-      const float lg = pm > 0.f ? link_s[i * N + j] : neg;
-      const float col = rnd<T>(rnd<T>(expf(rnd<T>(lg - mx))) * pm / den);
-      link_s[i * N + j] = col;  // this column is no longer read as link
-    }
-  }
+  };
+  static_assert(kThreads / 32 == 8, "lines pairs l with l + 8");
+  for (int i = warp; i < N; i += 16) lines(i, true, row_s, best_s[1]);
+  __syncthreads();  // rows read; the columns overwrite link_s below
+  for (int j = warp; j < N; j += 16) lines(j, false, link_s, best_s[0]);
   __syncthreads();
-  for (int e = tid; e < NN; e += blockDim.x)
-    norm[(long)pb * NN + e] = from_f<T>(rnd<T>(0.5f * rnd<T>(row_s[e] + link_s[e])));
+  for (int e = tid; e < NN; e += kThreads) {
+    const int x = (e / N) * kLd + e % N;
+    norm[(long)pb * NN + e] = from_f<T>(rnd<T>(0.5f * rnd<T>(row_s[x] + link_s[x])));
+  }
 
-  // v2 heads: one warp per detection.  The embedding of branch 0 (fused)
-  // feeds both heads.
-  const int warp = tid / 32, n_warps = blockDim.x / 32;
-  const T* a0 = a + (long)pb * K * N * D;
-  const T* b0 = b + (long)pb * K * N * D;
-  for (int n = warp; n < N; n += n_warps) {
-    const float nv = head_one<T>(b0 + (long)n * D, colbest_s[n], wn1, wnp,
-                                 bn1, wn2, bn2[0], D, HH);
-    const float ev = head_one<T>(a0 + (long)n * D, rowbest_s[n], we1, wep,
-                                 be1, ew2, eb2[0], D, HH);
-    if (tid % 32 == 0) {
-      new_out[(long)pb * N + n] = from_f<T>(nv * mc_s[n]);
-      end_out[(long)pb * N + n] = from_f<T>(ev * mp_s[n]);
+  // Heads: 0 for masked detections; for each valid one a warp computes
+  // relu(rnd(s + pooled * wp + b1)) . w2 + b2.
+  for (int n = tid; n < N; n += kThreads) {
+    if (!mcb[n]) new_out[(long)pb * N + n] = from_f<T>(0.f);
+    if (!mpb[n]) end_out[(long)pb * N + n] = from_f<T>(0.f);
+  }
+  const int n_new = count_s[0];
+  for (int w = warp; w < n_new + count_s[1]; w += n_warps) {
+    const int h = w < n_new ? 0 : 1;  // 0 new (curr n), 1 end (prev n)
+    const int n = list_s[h][w - h * n_new];
+    const float pooled = best_s[h][n];
+    const float* s = hs + (((long)pb * 2 + h) * N + n) * HH;
+    const float* wp = h == 0 ? wnp : wep;
+    const float* hb1 = h == 0 ? bn1 : be1;
+    const T* hw2 = h == 0 ? wn2 : ew2;
+    float acc = 0.f;
+#pragma unroll 8
+    for (int j = lane; j < HH; j += 32) {
+      const float hf = s[j] + pooled * wp[j] + hb1[j];
+      acc += fmaxf(rnd<T>(hf), 0.f) * to_f(hw2[j]);
     }
+#pragma unroll
+    for (int off = 16; off > 0; off /= 2)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    if (lane == 0)
+      (h == 0 ? new_out : end_out)[(long)pb * N + n] =
+          from_f<T>(acc + (h == 0 ? bn2 : eb2)[0]);
   }
 }
 
 template <typename T>
-int launch(const void* a, const void* b, const void* mp, const void* mc,
-           const void* w1, const void* b1, const void* bn_mean,
-           const void* bn_inv, const void* bn_scale, const void* bn_bias,
-           const void* w2, const void* b2, const void* wn1, const void* wnp,
-           const void* bn1, const void* wn2, const void* bn2, const void* we1,
-           const void* wep, const void* be1, const void* ew2, const void* eb2,
-           void* link, void* norm, void* new_out, void* end_out, int B, int K,
-           int N, int D, int H, int HH, cudaStream_t stream) {
-  const dim3 grid1(B, (N * N + kPairs - 1) / kPairs);
-  link_kernel<T><<<grid1, kThreads, 0, stream>>>(
+int launch_products(const void* a, const void* b, const void* mp,
+                    const void* mc, const void* w1, const void* b1,
+                    const void* bn_mean, const void* bn_inv,
+                    const void* bn_scale, const void* bn_bias, const void* w2,
+                    const void* b2, const void* wn1, const void* we1,
+                    void* part, void* hs, int B, int K, int N, int D, int H,
+                    int HH, cudaStream_t stream) {
+  // Opt in to the dynamic shared memory on the current device (the
+  // attribute is per device; setting it is a cheap host call).
+  const size_t bytes = gemm_smem_bytes<T>(D);
+  const cudaError_t err = cudaFuncSetAttribute(
+      products_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (N * N + kRows - 1) / kRows;
+  products_kernel<T><<<dim3(B, K * tiles + 2), kThreads, bytes, stream>>>(
       (const T*)a, (const T*)b, (const uint8_t*)mp, (const uint8_t*)mc,
       (const T*)w1, (const T*)b1, (const float*)bn_mean, (const float*)bn_inv,
       (const float*)bn_scale, (const float*)bn_bias, (const T*)w2,
-      (const float*)b2, (T*)link, K, N, D, H);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  norm_heads_kernel<T><<<B, kThreads, 0, stream>>>(
-      (const T*)link, (const T*)a, (const T*)b, (const uint8_t*)mp,
-      (const uint8_t*)mc, (const T*)wn1, (const float*)wnp, (const float*)bn1,
-      (const T*)wn2, (const float*)bn2, (const T*)we1, (const float*)wep,
-      (const float*)be1, (const T*)ew2, (const float*)eb2, (T*)norm,
-      (T*)new_out, (T*)end_out, K, N, D, HH);
+      (const float*)b2, (const T*)wn1, (const T*)we1, (float*)part,
+      (float*)hs, K, N, D, H, HH);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_finish(const void* part, const void* hs, const void* mp,
+                  const void* mc, const void* wnp, const void* bn1,
+                  const void* wn2, const void* bn2, const void* wep,
+                  const void* be1, const void* ew2, const void* eb2,
+                  void* link, void* norm, void* new_out, void* end_out, int B,
+                  int K, int N, int HH, cudaStream_t stream) {
+  finish_kernel<T><<<B, kThreads, 0, stream>>>(
+      (const float*)part, (const float*)hs, (const uint8_t*)mp,
+      (const uint8_t*)mc, (const float*)wnp, (const float*)bn1,
+      (const T*)wn2, (const float*)bn2, (const float*)wep, (const float*)be1,
+      (const T*)ew2, (const float*)eb2, (T*)link, (T*)norm, (T*)new_out,
+      (T*)end_out, K, N, HH);
   return (int)cudaGetLastError();
 }
 
@@ -326,36 +773,61 @@ int launch(const void* a, const void* b, const void* mp, const void* mc,
 
 extern "C" {
 
-// Largest N the launcher takes (launch 2 keeps an N x N tile on chip).
-int mmmot_affinity_max_n(void) { return kMaxN; }
+// The most slots per frame the kernels take (two ballot words per mask).
+int mmmot_affinity_max_n() { return kMaxN; }
 
-// Launch both kernels on `stream`.  Pointers are device pointers of
-// contiguous tensors; `is_bf16` selects bfloat16 (else float32) for a, b,
-// w1, b1, w2, wn1, wn2, we1, ew2 and the four outputs; masks are uint8
-// (bool) and every other parameter is float32.  Returns the CUDA error of
-// the launches (0 on success); nothing synchronises.
-int mmmot_affinity(const void* a, const void* b, const void* mp,
-                   const void* mc, const void* w1, const void* b1,
-                   const void* bn_mean, const void* bn_inv,
-                   const void* bn_scale, const void* bn_bias, const void* w2,
-                   const void* b2, const void* wn1, const void* wnp,
-                   const void* bn1, const void* wn2, const void* bn2,
-                   const void* we1, const void* wep, const void* be1,
-                   const void* ew2, const void* eb2, void* link, void* norm,
-                   void* new_out, void* end_out, int B, int K, int N, int D,
-                   int H, int HH, int is_bf16, void* stream) {
-  if (B <= 0 || K <= 0 || N <= 0 || N > kMaxN || D <= 0 || H <= 0 || HH <= 0)
+// Launch 1: the dense products.  part [B, K, N, N] gets each branch's
+// score + b2 at the valid pairs, hs [B, 2, N, HH] the new / end heads'
+// first Dense (without bias) at the valid curr / prev detections; both
+// are float32 scratch, other elements are left unwritten.  Pointers are
+// device pointers of contiguous tensors; `is_bf16` selects bfloat16 (else
+// float32) for a, b, w1, b1, w2, wn1 and we1; masks are uint8 (bool) and
+// the BN terms and b2 float32.  The caller has checked the widths (the
+// wrapper's check_widths: N <= mmmot_affinity_max_n(), D % 16, H % 8,
+// HH % 8) and made the stream's device current.  Returns the CUDA error
+// of the launch (0 on success), or cudaErrorInvalidValue for N outside
+// 1..kMaxN; nothing synchronises.
+int mmmot_affinity_products(const void* a, const void* b, const void* mp,
+                            const void* mc, const void* w1, const void* b1,
+                            const void* bn_mean, const void* bn_inv,
+                            const void* bn_scale, const void* bn_bias,
+                            const void* w2, const void* b2, const void* wn1,
+                            const void* we1, void* part, void* hs, int B,
+                            int K, int N, int D, int H, int HH, int is_bf16,
+                            void* stream) {
+  if (B <= 0 || K <= 0 || N <= 0 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return launch<__nv_bfloat16>(a, b, mp, mc, w1, b1, bn_mean, bn_inv,
-                                 bn_scale, bn_bias, w2, b2, wn1, wnp, bn1,
-                                 wn2, bn2, we1, wep, be1, ew2, eb2, link, norm,
-                                 new_out, end_out, B, K, N, D, H, HH, s);
-  return launch<float>(a, b, mp, mc, w1, b1, bn_mean, bn_inv, bn_scale,
-                       bn_bias, w2, b2, wn1, wnp, bn1, wn2, bn2, we1, wep, be1,
-                       ew2, eb2, link, norm, new_out, end_out, B, K, N, D, H,
-                       HH, s);
+    return launch_products<__nv_bfloat16>(a, b, mp, mc, w1, b1, bn_mean,
+                                          bn_inv, bn_scale, bn_bias, w2, b2,
+                                          wn1, we1, part, hs, B, K, N, D, H,
+                                          HH, s);
+  return launch_products<float>(a, b, mp, mc, w1, b1, bn_mean, bn_inv,
+                                bn_scale, bn_bias, w2, b2, wn1, we1, part, hs,
+                                B, K, N, D, H, HH, s);
+}
+
+// Launch 2, after launch 1 on the same stream: link, link_norm, new and
+// end (compute dtype; every element written).  wn2 and ew2 are in the
+// compute dtype, wnp, bn1, bn2, wep, be1 and eb2 float32.
+int mmmot_affinity_finish(const void* part, const void* hs, const void* mp,
+                          const void* mc, const void* wnp, const void* bn1,
+                          const void* wn2, const void* bn2, const void* wep,
+                          const void* be1, const void* ew2, const void* eb2,
+                          void* link, void* norm, void* new_out,
+                          void* end_out, int B, int K, int N, int HH,
+                          int is_bf16, void* stream) {
+  if (B <= 0 || K <= 0 || N <= 0 || N > kMaxN)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16)
+    return launch_finish<__nv_bfloat16>(part, hs, mp, mc, wnp, bn1, wn2, bn2,
+                                        wep, be1, ew2, eb2, link, norm,
+                                        new_out, end_out, B, K, N, HH, s);
+  return launch_finish<float>(part, hs, mp, mc, wnp, bn1, wn2, bn2, wep, be1,
+                              ew2, eb2, link, norm, new_out, end_out, B, K, N,
+                              HH, s);
 }
 
 }  // extern "C"

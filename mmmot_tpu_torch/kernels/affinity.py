@@ -26,7 +26,9 @@ from mmmot_tpu_torch.models.layers import BN_EPS
 from mmmot_tpu_torch.models.tracking_net import BRANCHES, AffinityOutput
 from mmmot_tpu_torch.ops.masking import masked_max, masked_softmax, pair_mask
 
-# (name, compute-dtype?) for every parameter, in launcher order.
+MAX_N = 64      # csrc/affinity.cu kMaxN; _library checks that they agree
+
+# (name, compute-dtype?) for every parameter.
 PARAM_SPEC = (("w1", True), ("b1", True), ("bn_mean", False),
               ("bn_inv", False), ("bn_scale", False), ("bn_bias", False),
               ("w2", True), ("b2", False),
@@ -138,28 +140,43 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
+def check_widths(N: int, D: int, H: int, hh: int) -> None:
+    """Raise on widths the kernel does not tile: N slots up to 64 (two
+    ballot words per mask), D a multiple of 16 (16-byte rows, k16 steps),
+    H and hh multiples of 8 (16-byte W chunks, n8 tiles).  The only gate
+    for D, H and hh: the C entry points trust it."""
+    if not 0 < N <= MAX_N:
+        raise ValueError(f"fused_affinity: N={N} outside 1..{MAX_N}")
+    for name, v, m in (("D", D, 16), ("H", H, 8), ("hh", hh, 8)):
+        if v <= 0 or v % m:
+            raise ValueError(f"fused_affinity: {name}={v} is not a positive "
+                             f"multiple of {m}")
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     """Build (first use in a checkout) and load ``csrc/affinity.cu``."""
     lib = ctypes.CDLL(str(build("affinity")))
-    lib.mmmot_affinity.argtypes = ([ctypes.c_void_p] * 26
-                                   + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.mmmot_affinity.restype = ctypes.c_int
-    lib.mmmot_affinity_max_n.argtypes = []
     lib.mmmot_affinity_max_n.restype = ctypes.c_int
+    if lib.mmmot_affinity_max_n() != MAX_N:
+        raise RuntimeError(f"csrc/affinity.cu takes N up to "
+                           f"{lib.mmmot_affinity_max_n()}, MAX_N is {MAX_N}")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.mmmot_affinity_products.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
+    lib.mmmot_affinity_finish.argtypes = [ptr] * 16 + [i32] * 5 + [ptr]
+    lib.mmmot_affinity_products.restype = i32
+    lib.mmmot_affinity_finish.restype = i32
     return lib
 
 
-def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor]
-                   ) -> AffinityOutput:
-    """Fused affinity for a batch of frame pairs.
-
-    CUDA tensors launch the CUDA kernel (and count one launch in
-    ``fused_affinity.launches``); CPU tensors run ``affinity_plain``.
-    Raises on any input the kernel does not take.
-    """
-    if a.device.type == "cpu":
-        return affinity_plain(a, b, mask_prev, mask_curr, params)
+def affinity_launches(a, b, mask_prev, mask_curr,
+                      params: Dict[str, torch.Tensor]):
+    """Check CUDA inputs, allocate the outputs and the kernel's scratch,
+    and return ``(products, finish, out)``: two closures that each launch
+    one of the kernel's two launches on the current stream (the dense
+    products, then link, softmax and heads), and the ``AffinityOutput``
+    they fill.  ``fused_affinity`` calls both; a caller may time each on
+    its own.  Raises on any input the kernel does not take."""
     if a.device.type != "cuda":
         raise ValueError(f"fused_affinity: unsupported device {a.device}")
     B, K, N, D = a.shape
@@ -168,6 +185,7 @@ def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor]
         raise TypeError(f"fused_affinity: dtype {cdt} not supported")
     H = params["w1"].shape[-1]
     hh = params["wn1"].shape[-1]
+    check_widths(N, D, H, hh)
     dev = a.device
     _check("b", b, dev, cdt, (B, K, N, D))
     _check("a", a, dev, cdt, (B, K, N, D))
@@ -181,29 +199,63 @@ def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor]
     for name, is_cdt in PARAM_SPEC:
         _check(name, params[name], dev, cdt if is_cdt else torch.float32,
                shapes[name])
+    for name, t in (("a", a), ("b", b), ("w1", params["w1"]),
+                    ("wn1", params["wn1"]), ("we1", params["we1"])):
+        if t.data_ptr() % 16:      # read with 16-byte loads
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     lib = _library()
-    if not 0 < N <= lib.mmmot_affinity_max_n():
-        raise ValueError(f"fused_affinity: N={N} outside 1.."
-                         f"{lib.mmmot_affinity_max_n()}")
-    link = torch.empty((B, N, N), dtype=cdt, device=dev)
-    norm = torch.empty_like(link)
-    new = torch.empty((B, N), dtype=cdt, device=dev)
-    end = torch.empty_like(new)
-    if B == 0:
-        return AffinityOutput(link, norm, new, end)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.mmmot_affinity(
-        a.data_ptr(), b.data_ptr(), mask_prev.data_ptr(),
-        mask_curr.data_ptr(),
-        *(params[name].data_ptr() for name, _ in PARAM_SPEC),
-        link.data_ptr(), norm.data_ptr(), new.data_ptr(), end.data_ptr(),
-        B, K, N, D, H, hh, int(cdt == torch.bfloat16), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_affinity: CUDA launch failed with error "
-                           f"{rc}")
+    out = AffinityOutput(torch.empty((B, N, N), dtype=cdt, device=dev),
+                         torch.empty((B, N, N), dtype=cdt, device=dev),
+                         torch.empty((B, N), dtype=cdt, device=dev),
+                         torch.empty((B, N), dtype=cdt, device=dev))
+    # Scratch: each branch's scores, and the heads' first Dense.
+    part = torch.empty((B, K, N, N), dtype=torch.float32, device=dev)
+    hs = torch.empty((B, 2, N, hh), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    p = {name: params[name].data_ptr() for name, _ in PARAM_SPEC}
+    masks = (mask_prev.data_ptr(), mask_curr.data_ptr())
+    tail = (int(cdt == torch.bfloat16), stream)
+
+    def run(fn, *args):
+        if B == 0:
+            return
+        with torch.cuda.device(dev):     # the device the C side launches on
+            rc = fn(*args)
+        if rc != 0:
+            raise RuntimeError(f"fused_affinity: {fn.__name__} failed with "
+                               f"CUDA error {rc}")
+
+    def products():
+        run(lib.mmmot_affinity_products, a.data_ptr(), b.data_ptr(), *masks,
+            *(p[n] for n in ("w1", "b1", "bn_mean", "bn_inv", "bn_scale",
+                             "bn_bias", "w2", "b2", "wn1", "we1")),
+            part.data_ptr(), hs.data_ptr(), B, K, N, D, H, hh, *tail)
+
+    def finish():
+        run(lib.mmmot_affinity_finish, part.data_ptr(), hs.data_ptr(),
+            *masks, *(p[n] for n in ("wnp", "bn1", "wn2", "bn2", "wep", "be1",
+                                     "ew2", "eb2")),
+            *(t.data_ptr() for t in out), B, K, N, hh, *tail)
+
+    return products, finish, out
+
+
+def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor]
+                   ) -> AffinityOutput:
+    """Fused affinity for a batch of frame pairs.
+
+    CUDA tensors launch the CUDA kernel (and count one launch in
+    ``fused_affinity.launches``); CPU tensors run ``affinity_plain``.
+    Raises on any input the kernel does not take.
+    """
+    if a.device.type == "cpu":
+        return affinity_plain(a, b, mask_prev, mask_curr, params)
+    products, finish, out = affinity_launches(a, b, mask_prev, mask_curr,
+                                              params)
+    products()
+    finish()
     fused_affinity.launches += 1
-    return AffinityOutput(link, norm, new, end)
+    return out
 
 
 fused_affinity.launches = 0

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -63,3 +64,64 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def _kernel_label(mangled: str) -> str:
+    """``products_kernel<bf16>`` for a mangled kernel template instance
+    (``...15products_kernelI13__nv_bfloat16E...``), else the name itself."""
+    m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)E", mangled)
+    if m is None:
+        return mangled
+    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+
+
+def ptxas_summary(log: str) -> dict:
+    """Per kernel of an ``nvcc -Xptxas -v`` log: registers, static shared
+    memory (bytes), stack frame and spill stores/loads (bytes)."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(_kernel_label(m.group(1)), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
+        if m:
+            cur.update(registers=int(m.group(1)),
+                       smem=int(m.group(2) or 0))
+    return out
+
+
+def sass_counts(sass: str, opcodes=("HMMA", "HGMMA")) -> dict:
+    """Per kernel of a ``cuobjdump -sass`` listing, how many instructions
+    have each opcode in ``opcodes``."""
+    out, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = out.setdefault(_kernel_label(m.group(1)),
+                                 dict.fromkeys(opcodes, 0))
+            continue
+        m = re.search(r"\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9]*)\b", line)
+        if cur is not None and m and m.group(1) in cur:
+            cur[m.group(1)] += 1
+    return out
+
+
+def disassemble(lib: Path):
+    """``cuobjdump -sass`` of a built library, or None where the toolkit
+    has no cuobjdump."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    proc = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed on {lib}:\n{proc.stderr}")
+    return proc.stdout

@@ -11,11 +11,11 @@ import torch
 
 from mmmot_tpu.kernels import build_affinity_params as j_build_params
 from mmmot_tpu.kernels import pallas_affinity
-from mmmot_tpu_torch.config import tiny_debug
+from mmmot_tpu_torch.config import full_mmmot, tiny_debug
 from mmmot_tpu_torch.kernels import build as kbuild
 from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
                                               build_affinity_params,
-                                              fused_affinity)
+                                              check_widths, fused_affinity)
 from mmmot_tpu_torch.models.tracking_net import BRANCHES
 
 from tests.torch_port_fixtures import (assert_close, init_flax, port_net,
@@ -30,18 +30,27 @@ def shared():
     net = port_net(variables, tiny_debug().model)
     return jcfg, jnet, variables, net
 
+def slot_masks(N, spec):
+    """One row per frame pair: an int is a prefix count of valid slots,
+    a tuple the valid slots themselves (a mask with holes)."""
+    ar = np.arange(N)
+    return np.stack([ar < s if isinstance(s, int) else np.isin(ar, s)
+                     for s in spec])
+
 def pair_batch(seed, B, N, n_prev, n_curr):
     r = np.random.default_rng(seed)
     a = r.normal(0, 1, (B, 3, N, D)).astype(np.float32)
     b = r.normal(0, 1, (B, 3, N, D)).astype(np.float32)
-    mp = np.arange(N)[None] < np.asarray(n_prev)[:, None]
-    mc = np.arange(N)[None] < np.asarray(n_curr)[:, None]
-    return a, b, mp, mc
+    return a, b, slot_masks(N, n_prev), slot_masks(N, n_curr)
 
 CASES = {
     "partial": (8, [5, 8, 1], [7, 2, 8]),
     "empty_frame": (8, [0, 6], [4, 0]),
     "n13": (13, [13, 9, 4], [11, 13, 0]),
+    "holed_alternating": (8, [(0, 2, 4, 6), (1, 3, 5, 7)],
+                          [(1, 3, 5, 7), (0, 2, 4, 6)]),
+    "holed_last_slot": (8, [(7,), 5], [(7,), (7,)]),
+    "holed_n13_full_row": (13, [13, 13], [(0, 3, 4, 9, 12), (1, 6, 7)]),
 }
 
 def test_params_match_reference(shared):
@@ -109,6 +118,56 @@ def test_build_is_keyed_atomic_and_cached(tmp_path, monkeypatch):
     assert first == second and first.exists() and len(calls) == 1
     assert "arch=compute_90a,code=sm_90a" in calls[0]
     assert [p.name for p in tmp_path.iterdir()] == [first.name]
+
+@pytest.mark.parametrize("preset", [tiny_debug, full_mmmot])
+def test_check_widths_takes_the_presets(preset):
+    m = preset().model
+    for N in (1, 32, 64):
+        check_widths(N, m.fusion.out_dim, m.affinity.hidden_dim,
+                     m.new_end.hidden_dim)
+
+@pytest.mark.parametrize("widths", [(0, 64, 32, 32), (65, 64, 32, 32),
+                                    (32, 72, 32, 32), (32, 64, 36, 32),
+                                    (32, 64, 32, 12), (32, 0, 32, 32)])
+def test_check_widths_rejects_untiled_widths(widths):
+    with pytest.raises(ValueError):
+        check_widths(*widths)
+
+def test_ptxas_and_sass_summaries():
+    # The library's own kernels as nvcc mangles them (sm_90a build).
+    ns = "_ZN44_GLOBAL__N__773f31a4_11_affinity_cu_557b72dc"
+    products = (f"{ns}15products_kernelI13__nv_bfloat16EEvPKT_S4_PKhS6_S4_"
+                "S4_PKfS8_S8_S8_S4_S8_S4_S4_PfS9_iiiii")
+    finish = (f"{ns}13finish_kernelIfEEvPKfS2_PKhS4_S2_S2_PKT_S2_S2_S2_S7_"
+              "S2_PS5_S8_S8_S8_iii")
+    log = (f"ptxas info    : Compiling entry function '{products}' for "
+           "'sm_90a'\n"
+           f"ptxas info    : Function properties for {products}\n"
+           "    48 bytes stack frame, 40 bytes spill stores, 40 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 128 registers, used 1 barriers, 5504 bytes "
+           "smem, 480 bytes cmem[0]\n"
+           f"ptxas info    : Compiling entry function '{finish}' for "
+           "'sm_90a'\n"
+           "ptxas info    : Used 48 registers, used 1 barriers, 34560 bytes "
+           "smem\n")
+    assert kbuild.ptxas_summary(log) == {
+        "products_kernel<bf16>": dict(stack=48, spill_stores=40,
+                                      spill_loads=40, registers=128,
+                                      smem=5504),
+        "finish_kernel<f32>": dict(registers=48, smem=34560)}
+    sass = (f"\t\tFunction : {products}\n"
+            "        /*0450*/                   HMMA.16816.F32.BF16 R24, R4, "
+            "R20, R24 ;   /* 0x000000140418723c */\n"
+            "                                      /* 0x000fe20000001844 */\n"
+            "        /*0460*/               @!P0 HMMA.16816.F32.BF16 R8, R4, "
+            "R20, R8 ;\n"
+            "        /*0470*/                   FFMA R1, R2, R3, R4 ;\n"
+            f"\t\tFunction : {finish}\n"
+            "        /*0010*/                   FFMA R1, R2, R3, R4 ;\n")
+    assert kbuild.sass_counts(sass) == {
+        "products_kernel<bf16>": {"HMMA": 2, "HGMMA": 0},
+        "finish_kernel<f32>": {"HMMA": 0, "HGMMA": 0}}
 
 def test_missing_nvcc_is_a_clear_error(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))

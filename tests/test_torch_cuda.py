@@ -28,8 +28,23 @@ def gpu():
     return torch.device("cuda", 0)
 
 
+# (N, prev, curr) per frame pair: an int is a prefix count of valid
+# slots, a tuple the valid slots themselves (masks with holes).
 CASES = [(8, [5, 8, 1], [7, 2, 8]), (8, [0, 6], [4, 0]),
-         (13, [13, 9, 4], [11, 13, 0]), (64, [64, 40], [17, 64])]
+         (13, [13, 9, 4], [11, 13, 0]), (64, [64, 40], [17, 64]),
+         # alternating slots; a single valid slot at the last index
+         (8, [(0, 2, 4, 6), (7,)], [(1, 3, 5, 7), (7,)]),
+         # a full N=13 row against a holed column set: n_p * n_c = 65
+         (13, [13], [(0, 3, 4, 9, 12)]),
+         # n_p * n_c = 64 exactly (one full tile of pairs), holed
+         (16, [tuple(range(0, 16, 2))], [(1, 2, 3, 5, 8, 11, 13, 15)])]
+
+
+def masks(N, spec, dev):
+    ar = torch.arange(N, device=dev)
+    return torch.stack([ar < s if isinstance(s, int)
+                        else torch.isin(ar, torch.tensor(s, device=dev))
+                        for s in spec])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -42,9 +57,7 @@ def test_kernel_matches_plain(gpu, dtype):
         B = len(n_prev)
         a, b = (torch.randn((B, 3, N, 64), generator=gen, device=gpu).to(dt)
                 for _ in range(2))
-        ar = torch.arange(N, device=gpu)
-        mp = ar[None] < torch.tensor(n_prev, device=gpu)[:, None]
-        mc = ar[None] < torch.tensor(n_curr, device=gpu)[:, None]
+        mp, mc = masks(N, n_prev, gpu), masks(N, n_curr, gpu)
         before = fused_affinity.launches
         with f32_parity():
             got = fused_affinity(a, b, mp, mc, params)
