@@ -19,14 +19,28 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    empty frame and a frame of 27 detections among them; every masked link
    must be exactly 0; kernel, per-launch, plain and library timings,
    each as device time and as time per call with the host's work;
-4. reference: the ``tiny_debug`` model tracks a small sequence on the CPU
+4. reference: ``fma`` (``torch.addcmul``) must round once, as its float64
+   form does; then the ``tiny_debug`` model tracks a small sequence on the CPU
    (plain versions) and on the GPU (kernels) in float32 with the same
    seeded weights; the track ids must be equal;
 5. main path: the flagship ``full_mmmot`` at full width, seeded random
    weights, one sequence of T=16 raw 384x1248 frames with 16384-point
    clouds and N=32 slots (about 12 valid per frame), compact-first with
    chunk 32 and the auction; ids are checked and the fused kernel's launch
-   count must rise during the run.
+   count must rise during the run;
+6. runner: a KITTI tree (two sequences of 100 and 70 frames at 376x1248,
+   PNGs from the port's writer, 16384-point scans, labels as oracle
+   detections) tracked by ``track_kitti_sequences``.  First ``tiny_debug``
+   in float32 on the first 20 frames, window 8, two sequences per call,
+   on the CPU and on the GPU: the result files must be byte-equal.  Then
+   ``full_mmmot`` at full width, window 64, two sequences per call (state
+   carried across windows, the last window padded): no dropped
+   detections, finite scores, ids that continue across windows, and one
+   fused-kernel launch per window.  The runner then tracks one window
+   again with its stages timed (``stage_timers``), and the fused kernel's
+   output on that window's own inputs (B=128 frame pairs) is held against
+   its plain version.  Its JSON line ``{"runner": ...}`` precedes the
+   kernel line.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -35,14 +49,16 @@ entry per kernel.  Any failure raises and exits nonzero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
-from mmmot_tpu_torch.assoc.solve import associate
+from mmmot_tpu_torch.assoc.auction import auction_lap
 from mmmot_tpu_torch.config import full_mmmot, tiny_debug
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels import build as kbuild
@@ -50,11 +66,11 @@ from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
                                               affinity_plain,
                                               build_affinity_params,
                                               fused_affinity, heads_plain)
+from mmmot_tpu_torch.models.layers import fma
 from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
-from mmmot_tpu_torch.tracker.sequence import (extract_frames, pair_inputs,
-                                              propagate_ids,
-                                              track_sequence_from_frames)
-from mmmot_tpu_torch.tracker.tracker import TrackingModule, init_state
+from mmmot_tpu_torch.tracker.kitti_runner import track_kitti_sequences
+from mmmot_tpu_torch.tracker.sequence import track_sequence_from_frames
+from mmmot_tpu_torch.tracker.tracker import TrackingModule
 
 T0 = time.time()
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
@@ -376,6 +392,50 @@ def reference_check(dev):
           f"({linked} tracks over {int(frames[3].sum())} detections)")
 
 
+@contextlib.contextmanager
+def stage_timers(mod):
+    """While open, the tracking path's own stage functions (extraction,
+    ``mod.affinity``, the association, the id propagation) run wrapped in
+    timers that synchronise the device before and after each call.
+    Yields (times {stage: ms, summed over calls}, seen {"args", "out"}:
+    the fused kernel's last arguments and output)."""
+    import mmmot_tpu_torch.tracker.sequence as seq_mod
+    import mmmot_tpu_torch.tracker.tracker as trk_mod
+
+    times, seen = {}, {}
+
+    def timer(name, fn):
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = fn(*args, **kw)
+            torch.cuda.synchronize()
+            times[name] = times.get(name, 0.0) \
+                + (time.perf_counter() - t) * 1e3
+            return r
+        return run
+
+    def kernel(*args):
+        seen["args"], seen["out"] = args, fused_affinity(*args)
+        return seen["out"]
+
+    stages = {"extract": (seq_mod, "extract_frames_batched"),
+              "affinity": (mod, "affinity"),
+              "auction": (seq_mod, "associate"),
+              "ids": (seq_mod, "propagate_ids")}
+    saved = {k: getattr(m, n) for k, (m, n) in stages.items()}
+    for k, (m, n) in stages.items():
+        setattr(m, n, timer(k, saved[k]))
+    trk_mod.fused_affinity = kernel
+    try:
+        yield times, seen
+    finally:
+        for k, (m, n) in stages.items():
+            setattr(m, n, saved[k])
+        del mod.affinity                # the bound method again
+        trk_mod.fused_affinity = fused_affinity
+
+
 def main_path(net, dev, smi: str, profile: bool):
     """Phase 5: the flagship raw-frames path at full width."""
     cfg = full_mmmot()
@@ -395,12 +455,12 @@ def main_path(net, dev, smi: str, profile: bool):
     stage(f"main path warm-up: {n_valid} detections, capacity {capacity}, "
           f"crop window {window}")
 
-    fused_affinity.launches = 0
+    fused_affinity.launches = auction_lap.rounds = 0
     t0 = time.perf_counter()
     out = track_sequence_from_frames(mod, *args, **kw)
     ids = out["ids"].cpu()
     warm_s = time.perf_counter() - t0
-    launches = fused_affinity.launches
+    launches, rounds = fused_affinity.launches, auction_lap.rounds
     if launches < 1:
         raise AssertionError("main path did not launch the fused kernel")
     if int(out["n_dropped"]) != 0:
@@ -410,34 +470,16 @@ def main_path(net, dev, smi: str, profile: bool):
     check_ids(ids, det_mask)
     stage(f"main path: {warm_s * 1e3:.1f} ms for {T} frames = "
           f"{T / warm_s:.1f} FPS on {smi}, {launches} fused-kernel "
-          f"launch(es), {len(ids[ids >= 0].unique())} tracks")
+          f"launch(es), {rounds} auction rounds, "
+          f"{len(ids[ids >= 0].unique())} tracks")
 
-    # Stage breakdown: the same calls, synchronised between stages.
-    times = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r = fn()
-        torch.cuda.synchronize()
-        times[name] = (time.perf_counter() - t) * 1e3
-        return r
-
-    feats, kept = timed("extract", lambda: extract_frames(mod, *args, **kw))
-    state0 = init_state({k: v.shape[-1] for k, v in feats.items()}, N,
-                        net.compute_dtype, dev)
-    prev, mask_prev = pair_inputs(feats, kept, state0)
-    aff = timed("affinity", lambda: mod.affinity(prev, feats, mask_prev,
-                                                 kept))
-    dec = timed("auction", lambda: associate(
-        aff.link_norm, torch.sigmoid(aff.new), torch.sigmoid(aff.end),
-        mask_prev, kept))
-    timed("ids", lambda: propagate_ids(dec.match_curr, dec.is_new, kept,
-                                       state0))
+    # Stage breakdown: the same call, synchronised between stages.
+    with stage_timers(mod) as (times, _):
+        track_sequence_from_frames(mod, *args, **kw)
     stage("main path stages (ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in times.items()))
     result = dict(launches=launches, warm_ms=warm_s * 1e3, fps=T / warm_s,
-                  stages_ms=times, n_valid=n_valid)
+                  stages_ms=times, n_valid=n_valid, auction_rounds=rounds)
     if profile:
         result["profiled"] = profiled_pass(mod, args, kw)
     return result
@@ -482,6 +524,271 @@ def profiled_pass(mod, args, kw):
     return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall)
 
 
+# Phase 6: the KITTI runner on a tree written by the port's own PNG
+# writer.  Two sequences at KITTI's frame size; 6 cars through the whole
+# sequence and 12 for 20-60 frames each (6-18 per frame).
+RUNNER_SEQS = (("0000", 100), ("0001", 70))
+KITTI_H, KITTI_W = 376, 1248
+KITTI_F, KITTI_CX, KITTI_CY = 721.5377, 609.5593, 172.854
+CLOUD_POINTS = 16384
+AGREE_FRAMES, AGREE_WINDOW = 20, 8
+RUNNER_WINDOW, RUNNER_S = 64, 2
+
+
+def _car_tracks(rng, T):
+    """(birth, death, lateral x0, vx, depth z0, vz, colour, texture) per
+    car, in camera coordinates (metres)."""
+    tracks = []
+    for k in range(18):
+        if k < 6:
+            birth, death = 0, T
+        else:
+            span = int(rng.integers(20, 61))
+            birth = int(rng.integers(0, max(1, T - span)))
+            death = min(T, birth + span)
+        tracks.append((birth, death, rng.uniform(-8, 8), rng.uniform(-0.05,
+                                                                       0.05),
+                       rng.uniform(8, 45), rng.uniform(-0.15, 0.15),
+                       rng.integers(40, 220, 3),
+                       rng.integers(-30, 31, (8, 8, 3))))
+    return tracks
+
+
+def write_kitti_tree(root: str, seed: int = 0):
+    """KITTI tracking layout under ``root``: image_02 PNGs (the port's
+    writer, rows cycling through all five filters), velodyne scans of
+    16384 points with a cluster inside every car, label_02 (read as
+    oracle detections), calib.  Returns the frame count."""
+    import os
+
+    from mmmot_tpu_torch.data.kitti_io import (KittiObject,
+                                               write_kitti_result)
+    from mmmot_tpu_torch.data.png import write_png
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:KITTI_H, :KITTI_W]
+    dims = np.array([1.5, 1.6, 3.9])                     # h, w, l
+    for seq, T in RUNNER_SEQS:
+        for sub in (f"image_02/{seq}", f"velodyne/{seq}", "label_02",
+                    "calib"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        with open(os.path.join(root, "calib", f"{seq}.txt"), "w") as fh:
+            fh.write("P2: " + " ".join(map(str, (
+                KITTI_F, 0, KITTI_CX, 0, 0, KITTI_F, KITTI_CY, 0, 0, 0, 1,
+                0))) + "\n")
+            fh.write("R_rect " + " ".join(map(str, np.eye(3).ravel()))
+                     + "\n")
+            fh.write("Tr_velo_cam 0 -1 0 0 0 0 -1 0 1 0 0 0\n")
+        sky = np.stack([90 + xx // 16, 120 + yy // 8, 160 + 0 * xx], -1)
+        tracks = _car_tracks(rng, T)
+        objs = []
+        for t in range(T):
+            img = sky.copy()
+            cars = []
+            for tid, (b, d, x0, vx, z0, vz, col, tex) in enumerate(tracks):
+                if not b <= t < d:
+                    continue
+                z = float(np.clip(z0 + vz * (t - b), 6.0, 60.0))
+                x = float(np.clip(x0 + vx * (t - b), -0.6 * z * KITTI_CX
+                                  / KITTI_F, 0.6 * z * KITTI_CX / KITTI_F))
+                y = 1.65 - dims[0] / 2
+                u, v = KITTI_F * x / z + KITTI_CX, KITTI_F * y / z + KITTI_CY
+                hw, hh = KITTI_F * dims[2] / z / 2, KITTI_F * dims[0] / z / 2
+                box = np.clip([u - hw, v - hh, u + hw, v + hh], 0,
+                              [KITTI_W - 1, KITTI_H - 1] * 2)
+                if min(box[2] - box[0], box[3] - box[1]) >= 4:
+                    cars.append((z, tid, box, x, y, col, tex))
+            for z, tid, box, x, y, col, tex in sorted(cars, reverse=True):
+                l, tp, r, bt = box.astype(int)
+                patch = np.tile(tex, (-(-(bt - tp) // 8), -(-(r - l) // 8),
+                                      1))[:bt - tp, :r - l]
+                img[tp:bt, l:r] = col + patch
+                objs.append(KittiObject(
+                    frame=t, track_id=tid, obj_type="Car",
+                    bbox=np.asarray(box, float), dimensions=dims,
+                    location=np.array([x, 1.65, z]), rotation_y=0.0))
+            write_png(os.path.join(root, "image_02", seq, f"{t:06d}.png"),
+                      np.clip(img, 0, 255).astype(np.uint8))
+            # Velodyne frame: x forward, y left, z up (camera X right,
+            # Y down, Z forward): velo = (Z, -X, -Y).
+            pts = [np.stack([rng.uniform(2, 70, CLOUD_POINTS),
+                             rng.uniform(-30, 30, CLOUD_POINTS),
+                             rng.uniform(-2, 1, CLOUD_POINTS)], -1)]
+            for z, tid, box, *_ in cars:
+                n = 300
+                uu = rng.uniform(box[0], box[2], n)
+                vv = rng.uniform(box[1], box[3], n)
+                zz = z + rng.uniform(-dims[2] / 2, dims[2] / 2, n)
+                pts.append(np.stack([zz, -(uu - KITTI_CX) * zz / KITTI_F,
+                                     -(vv - KITTI_CY) * zz / KITTI_F], -1))
+            pts = np.concatenate(pts)
+            order = rng.permutation(len(pts))[:CLOUD_POINTS]
+            cloud = np.concatenate([pts[order], rng.uniform(
+                0, 1, (len(order), 1))], -1).astype(np.float32)
+            cloud.tofile(os.path.join(root, "velodyne", seq, f"{t:06d}.bin"))
+        write_kitti_result(objs, os.path.join(root, "label_02",
+                                              f"{seq}.txt"))
+    return sum(T for _, T in RUNNER_SEQS)
+
+
+def result_files(d: str):
+    import os
+
+    return {n: open(os.path.join(d, n), "rb").read()
+            for n in sorted(os.listdir(d))
+            if os.path.isfile(os.path.join(d, n))}
+
+
+def runner_agreement(root: str, dev, tmp: str):
+    """tiny_debug float32 on the tree's first frames, window 8, two
+    sequences per call, on the CPU (plain versions) and on the GPU
+    (kernels): the result and summary files must be byte-equal."""
+    import dataclasses
+    import os
+
+    cfg = tiny_debug()
+    data = dataclasses.replace(cfg.data, root=root)
+    files = {}
+    for device in ("cpu", dev):
+        net = init_random_(TrackingNet(cfg.model, device=device), 7)
+        with torch.no_grad():           # favour links over new/end
+            for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+                head.dense_1.bias.fill_(-3.0)
+        before = fused_affinity.launches
+        out = os.path.join(tmp, f"agree_{torch.device(device).type}")
+        stats = track_kitti_sequences(
+            TrackingModule(net), data, out, window=AGREE_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=AGREE_FRAMES)
+        launched = fused_affinity.launches - before
+        if (device == "cpu") == (launched > 0):
+            raise AssertionError(f"agreement run on {device}: {launched} "
+                                 "kernel launches")
+        if stats["n_dropped"]:
+            raise AssertionError(f"{device}: n_dropped {stats['n_dropped']}")
+        files[device] = result_files(out)
+    cpu, gpu = files["cpu"], files[dev]
+    if sorted(cpu) != sorted(gpu) or len(cpu) < 4:
+        raise AssertionError(f"result files differ: {sorted(cpu)} vs "
+                             f"{sorted(gpu)}")
+    for name in cpu:
+        if cpu[name] != gpu[name]:
+            raise AssertionError(f"{name}: GPU result differs from the CPU's")
+    stage(f"runner agreement: tiny_debug f32, {AGREE_FRAMES} frames x "
+          f"{RUNNER_S} sequences, window {AGREE_WINDOW}: {len(cpu)} files "
+          "byte-equal on CPU and GPU")
+    return {"frames": AGREE_FRAMES, "window": AGREE_WINDOW,
+            "files": sorted(cpu), "byte_equal": True}
+
+
+def runner_split(mod, data, dev, out_dir: str):
+    """The runner itself over one window (the first 64 frames of each
+    sequence: one group of two) under ``stage_timers``: load (the
+    loader's PNG decode and cloud read of the group), extract, affinity,
+    auction, ids and the whole window (ms).  The fused kernel's output on
+    that window's own features and masks (B = S*64 frame pairs) is then
+    held against its plain version at the bfloat16 tolerance."""
+    auction_lap.rounds = 0
+    with stage_timers(mod) as (times, seen):
+        stats = track_kitti_sequences(
+            mod, data, out_dir, window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
+            evaluate=False)
+    rounds = auction_lap.rounds
+    if stats["n_windows"] != 1:
+        raise AssertionError(f"split: {stats['n_windows']} windows")
+    times["load"] = stats["load_s"] * 1e3
+    times["window"] = stats["window_s"][0] * 1e3
+    a, b, mp, mc, params = seen["args"]
+    B = RUNNER_S * RUNNER_WINDOW
+    if a.shape[0] != B or a.dtype != torch.bfloat16:
+        raise AssertionError(f"split: kernel got {tuple(a.shape)} "
+                             f"{a.dtype}, expected B={B} bfloat16")
+    with torch.inference_mode():
+        want = affinity_plain(a, b, mp, mc, params)
+        errs = check_agreement(seen["out"], want, a, b, mp, mc, params,
+                               torch.bfloat16, B)
+    stage(f"runner window vs plain: B={B} bfloat16, "
+          f"{int((mp.sum(1) * mc.sum(1)).sum())} valid pairs of the "
+          f"runner's features: max err {errs}")
+    n_det = sum(int(o["det_mask"].sum()) for o in stats["outputs"].values())
+    return times, n_det, rounds, errs
+
+
+def runner_phase(net, dev, smi: str):
+    """Phase 6: the agreement gate, then the flagship ``full_mmmot``
+    runner at full width over the whole tree (window 64, two sequences
+    per call: state carried across windows, the last window padded)."""
+    import dataclasses
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti"
+        t = time.perf_counter()
+        n_frames = write_kitti_tree(root)
+        stage(f"runner tree: {n_frames} frames of {KITTI_H}x{KITTI_W} "
+              f"written in {time.perf_counter() - t:.1f} s")
+        agreement = runner_agreement(root, dev, tmp)
+
+        data = dataclasses.replace(full_mmmot().data, root=root)
+        mod = TrackingModule(net)
+        fused_affinity.launches = 0
+        stats = track_kitti_sequences(
+            mod, data, f"{tmp}/full", window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S)
+        launches = fused_affinity.launches
+        if launches != stats["n_windows"]:
+            raise AssertionError(f"runner: {launches} fused-kernel launches "
+                                 f"for {stats['n_windows']} windows")
+        if stats["n_dropped"] != 0:
+            raise AssertionError(f"runner: n_dropped {stats['n_dropped']}")
+        for seq, o in stats["outputs"].items():
+            if not np.isfinite(o["det_score"]).all():
+                raise AssertionError(f"{seq}: non-finite det scores")
+            check_ids(torch.as_tensor(o["ids"]),
+                      torch.as_tensor(o["det_mask"]))
+        split, n_det, rounds, split_errs = runner_split(
+            mod, data, dev, f"{tmp}/split")
+    counted = stats["window_s"][1:]
+    result = {
+        "frames": stats["frames_loaded"], "windows": stats["n_windows"],
+        "S": RUNNER_S, "window": RUNNER_WINDOW,
+        "fps": stats["fps"], "frames_counted": stats["total_frames"],
+        "window_ms": [1e3 * x for x in stats["window_s"]],
+        "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
+        "split_ms": split, "split_detections": n_det,
+        "split_auction_rounds": rounds,
+        "split_kernel_vs_plain_max_err": split_errs,
+        "load_s": stats["load_s"],
+        "png_decode_ms_per_frame": 1e3 * stats["decode_s"]
+        / max(1, stats["frames_loaded"]),
+        "launches": launches,
+        "mota_random_weights": stats["metrics"].mota,
+        "hota_random_weights": stats["hota"].hota,
+        "agreement": agreement, "gpu": smi}
+    stage(f"runner: {result['frames']} frames, {result['windows']} windows "
+          f"of {RUNNER_WINDOW} x S={RUNNER_S}, {stats['fps']:.1f} FPS after "
+          f"the first window, windows {result['window_ms']} ms, split "
+          f"{split} ms ({rounds} auction rounds), PNG decode "
+          f"{result['png_decode_ms_per_frame']:.1f} ms/frame, MOTA {result['mota_random_weights']:.4f} HOTA "
+          f"{result['hota_random_weights']:.4f} (random weights), "
+          f"{launches} launches, on {smi}")
+    return result
+
+
+def check_fma(dev):
+    """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
+    float64 form does and as the reference's compiled multiply-adds do."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a, b, c = (torch.randn(1 << 20, generator=gen, device=dev) * 100
+               for _ in range(3))
+    got = fma(a, b, c)
+    want = (a.double() * b.double() + c.double()).float()
+    if not torch.equal(got, want):
+        raise AssertionError(f"fma on {dev}: {(got != want).sum().item()} of "
+                             f"{a.numel()} differ from the float64 form")
+    stage("fma: torch.addcmul equals the float64 form on 2^20 values")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     profile = "--profile" in argv
@@ -505,8 +812,10 @@ def main(argv=None) -> int:
 
     net = init_random_(TrackingNet(full_mmmot().model, device=dev), 0)
     kern = check_kernel(net, dev)
+    check_fma(dev)
     reference_check(dev)
     run = main_path(net, dev, smi, profile)
+    runner = runner_phase(net, dev, smi)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -521,6 +830,8 @@ def main(argv=None) -> int:
         "source": "mmmot_tpu_torch/csrc/affinity.cu",
         "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
         "launches": run["launches"],
+        "launches_by_path": {"main_path": run["launches"],
+                             "runner": runner["launches"]},
         "max_abs_err": max(bf["errs"].values()),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -538,8 +849,10 @@ def main(argv=None) -> int:
     }
     print(json.dumps({"main_path": {
         "frames": T, "detections": run["n_valid"], "warm_ms": run["warm_ms"],
+        "auction_rounds": run["auction_rounds"],
         "fps": run["fps"], "stages_ms": run["stages_ms"],
         "profiled": run.get("profiled"), "gpu": smi}}))
+    print(json.dumps({"runner": runner}))
     print(json.dumps({"kernels": [entry]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

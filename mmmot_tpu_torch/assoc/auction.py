@@ -47,7 +47,9 @@ def _auction_all_phases(cost, eps_start: int, scale_div: int,
                         max_iters: int, bid_cap: int):
     """All eps phases for S instances at once; cost int32 [S, M, M].
 
-    Returns (assign [S, M], owner [S, M]) int32, -1 where unassigned.
+    Returns (assign [S, M], owner [S, M]) int32, -1 where unassigned,
+    and the bidding rounds run (the slowest instance's, rounded up to
+    ``SYNC_EVERY``).
     """
     S, M, _ = cost.shape
     dev = cost.device
@@ -101,7 +103,7 @@ def _auction_all_phases(cost, eps_start: int, scale_div: int,
         prices = torch.where(upd & ~conv, bid_prices, prices)
         eps = torch.where(running & converged, done_eps, eps)
         it = it + running.to(i32)
-    return assign, owner
+    return assign, owner, rounds
 
 
 def _complete_matching(cost, assign, owner):
@@ -127,19 +129,25 @@ def auction_lap(cost, max_iters: int = 100000):
 
     cost float [S, M, M] -> (row_to_col int32 [S, M], n_unassigned [S],
     the rows left for the greedy completion: 0 whenever the auction
-    converged).
+    converged).  ``auction_lap.rounds`` counts the bidding rounds run, over
+    all calls; each round launches the loop body's ops once for the
+    whole batch.
     """
     S, M, _ = cost.shape
     ci = _quantize(cost)
     start = (2 ** QUANT_BITS) * (M + 1) // 4
     scale_div = max(2, int(math.ceil(start ** (1.0 / SCALING_STEPS))))
     bid_cap = (2 ** QUANT_BITS) * (M + 1)
-    assign, owner = _auction_all_phases(ci, start, scale_div, max_iters,
-                                        bid_cap)
+    assign, owner, rounds = _auction_all_phases(ci, start, scale_div,
+                                                max_iters, bid_cap)
+    auction_lap.rounds += rounds
     n_unassigned = (assign < 0).sum(dim=1)
     if bool((n_unassigned > 0).any()):
         assign, owner = _complete_matching(ci, assign.clone(), owner)
     return assign, n_unassigned
+
+
+auction_lap.rounds = 0
 
 
 def solve_auction(link, new, end, mask_prev, mask_curr,

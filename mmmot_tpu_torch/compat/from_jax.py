@@ -5,7 +5,8 @@ OIHW, Dense kernels [in, out] -> [out, in], MaskedBatchNorm scale / bias /
 mean / var -> weight / bias / running_mean / running_var (eps 1e-5 on
 both sides).  The input is the JAX package's ``{"params": ...,
 "batch_stats": ...}`` as nested dicts of numpy arrays; nothing here reads
-JAX.
+JAX.  ``save_npz``/``load_npz`` carry those dicts across as one flat numpy
+archive (the track CLI's ``--weights``).
 """
 
 from __future__ import annotations
@@ -63,4 +64,27 @@ def load_flax_variables(variables_np: Mapping, net) -> Dict[str, torch.Tensor]:
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != torch "
                              f"shape {tuple(want[k].shape)}")
+    return out
+
+
+def save_npz(path: str, variables: Mapping) -> None:
+    """Write flax variables (nested dicts of arrays) as a flat numpy
+    archive: one array per leaf, keyed by its '/'-joined path
+    (``params/appear_net/.../kernel``, ``batch_stats/.../mean``)."""
+    np.savez(path, **{"/".join(p): np.asarray(v)
+                      for p, v in _flatten(variables)})
+
+
+def load_npz(path: str) -> Dict:
+    """Inverse of :func:`save_npz`: the nested ``{"params": ...,
+    "batch_stats": ...}`` dicts of numpy arrays that
+    :func:`load_flax_variables` takes."""
+    out: Dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            *heads, leaf = key.split("/")
+            node = out
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[leaf] = z[key]
     return out

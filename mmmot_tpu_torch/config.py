@@ -1,6 +1,7 @@
 """Configuration of the port: frozen dataclasses and Python presets.
 
-Only the knobs the flagship raw-frames path reads are carried.  The
+Only the knobs the flagship raw-frames path and the KITTI runner read
+are carried.  The
 values that the path supports but does not vary (VGG with batch norm and
 skip pooling, subabs correlation, a 2-layer link head, dual softmax, v2
 new/end heads with max pooling, ``add`` score fusion over the
@@ -89,9 +90,43 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """The KITTI tree the runner reads (``mmmot_tpu/config.py::DataConfig``,
+    the fields the runner reads, with their defaults and checks)."""
+
+    root: str = "data/kitti_tracking"
+    det_source: str = "pointpillars"   # detections/<det_source>/<seq>.txt
+    max_dets: int = 64                 # padded detection slots per frame
+    crop_size: Tuple[int, int] = (224, 224)
+    point_len: int = 512
+    point_source: str = "frustum"      # frustum (2D box) | box3d
+    score_threshold: float = 0.0       # drop detections scored below
+    track_class: str = "Car"           # Car | Pedestrian | Cyclist | All
+    cloud_filter: str = "boxes"        # boxes: keep the scan's points that
+                                       # project into a detection box, in a
+                                       # 4096 bucket; none: raw scan to M
+    packed_cache: bool = False         # memmapped packed sequences
+
+    def __post_init__(self):
+        if self.track_class not in ("Car", "Pedestrian", "Cyclist", "All"):
+            raise ValueError(
+                f"track_class must be Car/Pedestrian/Cyclist/All, "
+                f"got {self.track_class!r}")
+        if self.point_source not in ("frustum", "box3d"):
+            raise ValueError(
+                f"point_source must be frustum/box3d, "
+                f"got {self.point_source!r}")
+        if self.cloud_filter not in ("boxes", "none"):
+            raise ValueError(
+                f"cloud_filter must be boxes/none, "
+                f"got {self.cloud_filter!r}")
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "default"
     model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
 
 
 def full_mmmot() -> Config:
@@ -106,7 +141,9 @@ def full_mmmot() -> Config:
             fusion=FusionConfig(out_dim=512),
             affinity=AffinityConfig(hidden_dim=512),
             new_end=NewEndConfig(hidden_dim=256),
-            compute_dtype="bfloat16"))
+            compute_dtype="bfloat16"),
+        data=DataConfig(max_dets=32, crop_size=(224, 224), point_len=512,
+                        det_source="pointpillars"))
 
 
 def tiny_debug() -> Config:
@@ -121,4 +158,5 @@ def tiny_debug() -> Config:
             fusion=FusionConfig(out_dim=64),
             affinity=AffinityConfig(hidden_dim=32),
             new_end=NewEndConfig(hidden_dim=32),
-            compute_dtype="float32"))
+            compute_dtype="float32"),
+        data=DataConfig(max_dets=8, crop_size=(32, 32), point_len=16))

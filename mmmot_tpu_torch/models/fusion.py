@@ -7,7 +7,7 @@ import torch
 from torch import nn
 
 from mmmot_tpu_torch.config import FusionConfig
-from mmmot_tpu_torch.models.layers import Dense
+from mmmot_tpu_torch.models.layers import Dense, sigmoid
 
 
 class FusionModule(nn.Module):
@@ -20,7 +20,7 @@ class FusionModule(nn.Module):
 
     def forward(self, image_feat, lidar_feat, det_mask=None):
         """-> {"fused", "image", "lidar"} embeddings."""
-        gates = torch.sigmoid(self.gate(torch.cat([image_feat, lidar_feat],
+        gates = sigmoid(self.gate(torch.cat([image_feat, lidar_feat],
                                                   dim=-1)))
         fused = (gates[..., 0:1] * self.proj_image(image_feat)
                  + gates[..., 1:2] * self.proj_lidar(lidar_feat))

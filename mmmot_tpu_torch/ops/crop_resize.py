@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from mmmot_tpu_torch.models.layers import fma
+
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 RESIZE_DTYPE = torch.bfloat16     # the reference's resize dtype
@@ -26,10 +28,17 @@ RESIZE_DTYPE = torch.bfloat16     # the reference's resize dtype
 
 def _interp_matrix(lo, hi, n_out: int, size_in: int, dtype):
     """[n, n_out, size_in] two-tap bilinear weights (clamped tent) for
-    half-pixel-centre samples of [lo, hi) per detection."""
+    half-pixel-centre samples of [lo, hi) per detection.
+
+    The sample positions round as XLA compiles the reference's
+    ``lo + (hi - lo) * (i + 0.5) / n_out - 0.5``: the division becomes a
+    multiply by the float32 reciprocal, folded into the box width, and
+    the multiply-add rounds once."""
     dev = lo.device
-    i = (torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5) / n_out
-    pos = lo[:, None] + (hi - lo)[:, None] * i[None, :] - 0.5
+    half = torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5
+    step = (hi - lo) * torch.tensor(1.0 / n_out, dtype=torch.float32,
+                                    device=dev)
+    pos = fma(half[None, :], step[:, None], lo[:, None]) - 0.5
     pos = pos.clamp(0.0, size_in - 1.0)
     grid = torch.arange(size_in, dtype=torch.float32, device=dev)
     w = (1.0 - (pos[:, :, None] - grid[None, None, :]).abs()).clamp_min(0.0)
@@ -77,7 +86,10 @@ def crop_and_resize_gathered(images, frame_idx, boxes,
 
 
 def normalize_crops(crops, scale: float = 1.0 / 255.0):
-    """Pixel crops -> ImageNet-normalised float32."""
+    """Pixel crops -> ImageNet-normalised float32, rounded as the
+    reference's ``(x * scale - mean) / std`` compiles: one multiply-add,
+    then a multiply by the float32 reciprocal of ``std``."""
     mean = torch.tensor(IMAGENET_MEAN, device=crops.device)
-    std = torch.tensor(IMAGENET_STD, device=crops.device)
-    return (crops.float() * scale - mean) / std
+    inv_std = 1.0 / torch.tensor(IMAGENET_STD, device=crops.device)
+    scale = torch.tensor(scale, dtype=torch.float32, device=crops.device)
+    return fma(crops.float(), scale, -mean) * inv_std

@@ -19,20 +19,26 @@ def project_points(points_xyz, proj):
     """[..., M, 3] points, [..., 3, 4] camera matrix -> (u, v, depth).
 
     The product is written out per term so that it runs in plain float32
-    on every device (no TF32 matmul)."""
+    on every device (no TF32 matmul), and summed pairwise,
+    ``(x p0 + y p1) + (z p2 + p3)``, as the reference's ``hom @ proj.T``
+    rounds it: another order moves ``u`` or ``v`` by an ulp in about half
+    of the points, which flips points on a box edge in or out."""
     p = proj[..., None, :, :]                               # [..., 1, 3, 4]
     x, y, z = points_xyz[..., 0:1], points_xyz[..., 1:2], points_xyz[..., 2:3]
-    cam = x * p[..., 0] + y * p[..., 1] + z * p[..., 2] + p[..., 3]
+    cam = (x * p[..., 0] + y * p[..., 1]) + (z * p[..., 2] + p[..., 3])
     depth = cam[..., 2]
     uv = cam[..., :2] / depth.clamp_min(1e-6)[..., None]
     return uv[..., 0], uv[..., 1], depth
 
 
 def frustum_sample(points, boxes, proj, num_samples: int,
-                   det_mask: Optional[torch.Tensor] = None):
+                   det_mask: Optional[torch.Tensor] = None,
+                   point_valid: Optional[torch.Tensor] = None):
     """points [B, M, C], boxes [B, N, 4], proj [3, 4] or [B, 3, 4]
     -> (sampled [B, N, P, C], sample_mask [B, N, P]).
 
+    ``point_valid`` [B, M] masks padded cloud entries: they never count
+    as inside.
     Each detection's xyz is centred on the centroid of its samples; the
     extra channels (reflectance) are kept as they are.
     """
@@ -45,6 +51,8 @@ def frustum_sample(points, boxes, proj, num_samples: int,
     bx = boxes[..., None]                                   # [B, N, 4, 1]
     inside = ((u >= bx[:, :, 0]) & (u <= bx[:, :, 2]) & (v >= bx[:, :, 1])
               & (v <= bx[:, :, 3]) & (depth > 0.1))         # [B, N, M]
+    if point_valid is not None:
+        inside = inside & point_valid[:, None, :]
     if det_mask is not None:
         inside = inside & det_mask[:, :, None]
     rank = torch.arange(M, 0, -1, dtype=torch.int32, device=points.device)

@@ -44,18 +44,19 @@ def pair_mask(mask_a, mask_b):
 
 
 def compact_indices(flat_mask: torch.Tensor, capacity: int):
-    """Valid-first stable ordering of a flat boolean mask.
+    """Valid-first stable ordering of a flat boolean mask [..., total]
+    (each row of a batch on its own).
 
-    Returns (idx [capacity] int64: valid slots first, in original order;
-    taken [capacity] bool).  Scores are unique, so ``topk`` gives the same
-    order as the reference's ``lax.top_k``.
+    Returns (idx [..., capacity] int64: valid slots first, in original
+    order; taken [..., capacity] bool).  Scores are unique, so ``topk``
+    gives the same order as the reference's ``lax.top_k``.
     """
-    total = flat_mask.shape[0]
+    total = flat_mask.shape[-1]
     capacity = min(capacity, total)
     iota = torch.arange(total, dtype=torch.int64, device=flat_mask.device)
     score = flat_mask.to(torch.int64) * (total + 1) - iota
     idx = torch.topk(score, capacity, sorted=True).indices
-    return idx, flat_mask[idx]
+    return idx, torch.gather(flat_mask, -1, idx)
 
 
 def scatter_compact(values, idx, taken, total: int):

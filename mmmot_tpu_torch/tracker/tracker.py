@@ -21,26 +21,44 @@ from mmmot_tpu_torch.models.tracking_net import (BRANCHES, AffinityOutput,
 
 @dataclass
 class TrackerState:
-    """Track registry before a frame (N slots): the previous frame's
-    per-branch embeddings {name: [N, D]}, its mask [N] bool, its track ids
-    [N] int32 (-1 = empty) and the next fresh id (0-dim int32).  A
-    sequence starts from the empty ``init_state``."""
+    """Track registry before a frame (M slots): the previous frame's
+    per-branch embeddings {name: [M, D]}, its mask [M] bool (slots that
+    hold matchable tracks), its track ids [M] int32 (-1 = empty), the
+    frames since each track was born [M] int32 and the next fresh id
+    (0-dim int32).  A sequence starts from the empty ``init_state`` and a
+    window from the state the previous window returned.  A batch of S
+    sequences carries a leading [S] axis on every field."""
 
     feats: Dict[str, torch.Tensor]
     mask: torch.Tensor
     ids: torch.Tensor
+    ages: torch.Tensor
     next_id: torch.Tensor
 
 
-def init_state(feat_dims: Dict[str, int], num_slots: int, dtype,
-               device) -> TrackerState:
+def init_state(feat_dims: Dict[str, int], num_slots: int,
+               dtype=torch.float32, device="cuda") -> TrackerState:
+    """The empty registry of ``num_slots`` slots on ``device``."""
     z = dict(device=device)
     return TrackerState(
         feats={k: torch.zeros((num_slots, d), dtype=dtype, **z)
                for k, d in feat_dims.items()},
         mask=torch.zeros((num_slots,), dtype=torch.bool, **z),
         ids=torch.full((num_slots,), -1, dtype=torch.int32, **z),
+        ages=torch.zeros((num_slots,), dtype=torch.int32, **z),
         next_id=torch.zeros((), dtype=torch.int32, **z))
+
+
+def stack_states(states) -> TrackerState:
+    """S per-sequence states -> one state with a leading [S] axis."""
+    s0 = states[0]
+    return TrackerState(
+        feats={k: torch.stack([s.feats[k] for s in states])
+               for k in s0.feats},
+        mask=torch.stack([s.mask for s in states]),
+        ids=torch.stack([s.ids for s in states]),
+        ages=torch.stack([s.ages for s in states]),
+        next_id=torch.stack([s.next_id for s in states]))
 
 
 class TrackingModule:
@@ -68,6 +86,14 @@ class TrackingModule:
             self._params = build_affinity_params(self.net,
                                                  self.net.compute_dtype)
         return self._params
+
+    def init_state(self, num_slots: int) -> TrackerState:
+        """Empty state whose feats match what ``extract`` produces
+        (``TrackingModule.init_state`` of the reference)."""
+        c = self.net.cfg
+        dims = {"fused": c.fusion.out_dim, "image": c.appearance.out_dim,
+                "lidar": c.point.out_dim}
+        return init_state(dims, num_slots, device=self.device)
 
     def extract(self, crops, points, point_mask, det_mask):
         with torch.inference_mode(), f32_parity(self.parity):

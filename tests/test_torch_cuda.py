@@ -97,6 +97,7 @@ def test_tiny_tracking_cpu_equals_gpu(gpu):
                 head.dense_1.bias.fill_(-3.0)
         out = track_sequence_from_frames(
             TrackingModule(net), images, clouds, boxes, det_mask, proj,
-            (32, 32), cfg.model.point.point_len, crop_window=128)
+            (32, 32), cfg.model.point.point_len, compact_capacity=T * N,
+            crop_window=128)
         ids.append(out["ids"].cpu())
     assert torch.equal(ids[0], ids[1])

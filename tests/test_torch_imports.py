@@ -2,8 +2,10 @@
 
 A fresh interpreter installs a ``sys.meta_path`` finder that refuses
 those names, imports every module of ``mmmot_tpu_torch`` and loads
-``chip_smoke.py`` as a module (without running ``main``); none of the
-refused names may reach ``sys.modules``.  The machine with the GPU has
+``chip_smoke.py`` and ``auction_rounds.py`` as modules (without running
+``main``); none of the
+refused names may reach ``sys.modules``.  The track CLI's ``--help``
+runs under the same finder.  The machine with the GPU has
 none of them installed, so an import there would fail at start-up.
 """
 
@@ -24,23 +26,46 @@ class Refuse:
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+
+WALK = GUARD + r"""
 import mmmot_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(mmmot_tpu_torch.__path__,
                                                 "mmmot_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
-mod = importlib.util.module_from_spec(spec)
-spec.loader.exec_module(mod)
-assert callable(mod.main)
+for script in ("chip_smoke", "auction_rounds"):
+    spec = importlib.util.spec_from_file_location(script, script + ".py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert callable(mod.main)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 print(len(names))
 """
 
 
+CLI_HELP = GUARD + r"""
+import runpy
+sys.argv = ["track", "--help"]
+try:
+    runpy.run_module("mmmot_tpu_torch.cli.track", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+
+
 def test_port_and_smoke_import_without_jax():
-    proc = subprocess.run([sys.executable, "-c", GUARD], cwd=REPO,
+    proc = subprocess.run([sys.executable, "-c", WALK], cwd=REPO,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20     # every module was walked
+    assert int(proc.stdout.split()[-1]) >= 30     # every module was walked
+
+
+def test_track_cli_help_without_jax():
+    proc = subprocess.run([sys.executable, "-c", CLI_HELP], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--batch-sequences" in proc.stdout and "--weights" in proc.stdout

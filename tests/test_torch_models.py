@@ -25,6 +25,7 @@ from mmmot_tpu_torch.assoc.auction import SCALING_STEPS
 from mmmot_tpu_torch.compat.from_jax import load_flax_variables
 from mmmot_tpu_torch.config import full_mmmot, tiny_debug
 from mmmot_tpu_torch.models.affinity import normalize_link
+from mmmot_tpu_torch.models.layers import fma, sigmoid
 from mmmot_tpu_torch.models.pointnet import POINT_IN_DIM
 from mmmot_tpu_torch.models.tracking_net import TrackingNet
 
@@ -68,6 +69,10 @@ def test_presets_match_yaml(name, yaml_path):
         for f in dataclasses.fields(p):
             assert getattr(p, f.name) == getattr(r, f.name), (sect, f.name)
     assert port.model.compute_dtype == ref.model.compute_dtype
+    for f in dataclasses.fields(port.data):
+        want = getattr(ref.data, f.name)
+        assert getattr(port.data, f.name) == (
+            tuple(want) if isinstance(want, list) else want), ("data", f.name)
     assert ref.data.crop_size == port.model.appearance.crop_size
     assert ref.data.point_len == port.model.point.point_len
     assert ref.assoc.solver == "auction"
@@ -221,3 +226,55 @@ def test_entry_points_refuse_missing_cuda():
         pytest.skip("a GPU is present: nothing to refuse")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrackingNet(tiny_debug().model)
+
+
+def test_sigmoid_every_bfloat16_value():
+    """The port's sigmoid equals ``jax.nn.sigmoid`` on every finite
+    bfloat16 input (``torch.sigmoid`` differs on 1116 of them), and is
+    ``torch.sigmoid`` in float32."""
+    bits = np.arange(2 ** 16, dtype=np.uint16).view(np.int16)
+    x = torch.from_numpy(bits.copy()).view(torch.bfloat16)
+    x = x[torch.isfinite(x)]
+    assert x.numel() == 65280
+    want = np.asarray(jax.nn.sigmoid(
+        jnp.asarray(x.float().numpy()).astype(jnp.bfloat16))
+        .astype(jnp.float32))
+    np.testing.assert_array_equal(sigmoid(x).float().numpy(), want)
+    assert (torch.sigmoid(x).float().numpy() != want).sum() > 1000
+    xf = x.float()
+    assert torch.equal(sigmoid(xf), torch.sigmoid(xf))
+
+
+def test_fusion_bfloat16():
+    """Fusion C in bfloat16 from the same bfloat16 embeddings: the gate
+    rounds as the reference's sigmoid does.  The projections' products
+    sum in another order than XLA's, which may move a rare element by a
+    bfloat16 ulp."""
+    jcfg = dataclasses.replace(tiny_cfg_jax().model, compute_dtype="bfloat16")
+    jnet, variables = init_flax(jcfg, N=N)
+    pcfg = dataclasses.replace(tiny_debug().model, compute_dtype="bfloat16")
+    net = port_net(variables, pcfg)
+    r = np.random.default_rng(5)
+    img, lid = (r.normal(0, 1, (512, 64)).astype(np.float32)
+                for _ in range(2))
+    ji, jl = (jnp.asarray(v).astype(jnp.bfloat16) for v in (img, lid))
+    ref = jax.jit(lambda a, b: JFusion(jcfg.fusion, dtype=jnp.bfloat16)
+                  .apply(sub(variables, "fusion"), a, b))(ji, jl)
+    with torch.no_grad():
+        got = net.fusion(torch.tensor(img).bfloat16(),
+                         torch.tensor(lid).bfloat16())
+    want = np.asarray(ref["fused"].astype(jnp.float32))
+    differ = got["fused"].float().numpy() != want
+    assert differ.mean() < 1e-3, differ.mean()
+    assert_close(got["fused"], want, rtol=2 ** -7, atol=2 ** -7)
+
+
+def test_fma_rounds_once_as_xla_does():
+    """``a * b + c`` compiled by XLA rounds once; so does the port's
+    ``fma``, and two roundings differ on about a quarter of the inputs."""
+    r = np.random.default_rng(6)
+    a, b, c = (r.normal(0, 10, 100000).astype(np.float32) for _ in range(3))
+    want = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, b, c))
+    got = fma(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (a * b + c != want).mean() > 0.1

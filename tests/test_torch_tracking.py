@@ -3,6 +3,8 @@
 propagation) against the JAX package on a synthetic sequence with shared
 float32 weights.  Track ids must be equal exactly."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,7 @@ import torch
 from mmmot_tpu.config import AssocConfig as JAssocConfig
 from mmmot_tpu.data.synthetic import IMG_H, IMG_W, make_synthetic_sequence
 from mmmot_tpu.tracker import TrackingModule as JTrackingModule
+from mmmot_tpu.models import model_entry
 from mmmot_tpu.tracker import track_sequence_from_frames as j_track
 from mmmot_tpu_torch.config import tiny_debug
 from mmmot_tpu_torch.tracker.sequence import (extract_frames, pair_inputs,
@@ -102,9 +105,10 @@ def test_fused_affinity_equals_module_path(models):
         torch.as_tensor(x) for x in raw_sequence(12))
     mod = TrackingModule(net)
     feats, kept = extract_frames(mod, images, clouds, boxes, det_mask, proj,
-                                 (32, 32), P, crop_window=CROP_WINDOW)
+                                 (32, 32), P, compact_capacity=T * N,
+                                 crop_window=CROP_WINDOW)
     state0 = init_state({k: v.shape[-1] for k, v in feats.items()}, N,
-                        torch.float32, "cpu")
+                        device="cpu")
     prev, mask_prev = pair_inputs(feats, kept, state0)
     fused = mod.affinity(prev, feats, mask_prev, kept)
     with torch.inference_mode():
@@ -115,11 +119,59 @@ def test_fused_affinity_equals_module_path(models):
 
 def test_propagate_ids():
     """Linked detections inherit, new ones take fresh ids in slot order,
-    empty slots are -1 (the reference's elementwise ID scan)."""
-    state0 = init_state({"fused": 2}, 4, torch.float32, "cpu")
+    empty slots are -1 (the reference's elementwise ID scan); ages count
+    the frames since birth."""
+    state0 = init_state({"fused": 2}, 4, device="cpu")
     match = torch.tensor([[-1, -1, -1, -1], [2, -1, 0, -1], [-1, 0, -1, 2]],
                          dtype=torch.int32)
     new = torch.tensor([[1, 1, 1, 0], [0, 1, 0, 1], [1, 0, 0, 0]]).bool()
     dm = torch.tensor([[1, 1, 1, 0], [1, 1, 1, 1], [1, 1, 0, 1]]).bool()
-    ids = propagate_ids(match, new, dm, state0)
+    ids, ages, next_id = propagate_ids(match, new, dm, state0)
     assert ids.tolist() == [[0, 1, 2, -1], [2, 3, 0, 4], [5, 2, -1, 0]]
+    assert ages.tolist() == [1, 3, 0, 3]
+    assert int(next_id) == 6
+
+
+@pytest.fixture(scope="module")
+def bf16_pair(models):
+    """The shared weights in bfloat16 on both sides: the reference on its
+    fused Pallas kernel (interpret mode), jitted once for all seeds."""
+    _, variables, _ = models
+    jcfg = dataclasses.replace(tiny_cfg_jax().model, compute_dtype="bfloat16")
+    jmod = JTrackingModule(model_entry(jcfg), variables,
+                           JAssocConfig(solver="auction"),
+                           use_pallas_affinity=True, pallas_interpret=True)
+    net = port_net(variables, dataclasses.replace(tiny_debug().model,
+                                                  compute_dtype="bfloat16"))
+    return jmod, TrackingModule(net)
+
+
+# The reference's own XLA path disagrees with its Pallas path in bfloat16
+# on seeds 11, 20, 26 and 29, so the Pallas path is the oracle.  Seed 28
+# is where the port's sigmoid and its crop-path rounding once differed.
+@pytest.mark.parametrize("seed", [11, 20, 26, 28, 29])
+def test_bfloat16_ids_equal_reference_pallas(bf16_pair, seed):
+    jmod, mod = bf16_pair
+    images, clouds, boxes, det_mask, proj = raw_sequence(seed)
+    ref = jax.jit(lambda im, cl, bx, dm, pr: j_track(
+        jmod, im, cl, bx, dm, pr, (32, 32), P, compact_capacity=40,
+        extract_chunk=16, crop_window=CROP_WINDOW))(
+        *map(jnp.asarray, (images, clouds, boxes, det_mask, proj)))
+    out = track_sequence_from_frames(
+        mod, images, clouds, boxes, det_mask, proj, (32, 32), P,
+        compact_capacity=40, extract_chunk=16, crop_window=CROP_WINDOW)
+    assert out["det_score"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(out["ids"].numpy(), np.asarray(ref["ids"]))
+    assert int(out["n_dropped"]) == int(ref["n_dropped"]) == 0
+
+
+def test_compact_capacity_none_raises(models):
+    """``None`` is the reference's per-slot branch, which is not ported."""
+    _, _, net = models
+    images, clouds, boxes, det_mask, proj = raw_sequence(11)
+    with pytest.raises(ValueError, match="per-slot branch"):
+        track_sequence_from_frames(TrackingModule(net), images, clouds,
+                                   boxes, det_mask, proj, (32, 32), P)
+    with pytest.raises(ValueError, match="per-slot branch"):
+        extract_frames(TrackingModule(net), *(torch.as_tensor(x) for x in (
+            images, clouds, boxes, det_mask, proj)), (32, 32), P)

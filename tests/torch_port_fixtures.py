@@ -86,3 +86,67 @@ def assert_close(actual, desired, rtol=RTOL, atol=ATOL, err_msg=""):
     np.testing.assert_allclose(np.asarray(actual, np.float32),
                                np.asarray(desired, np.float32),
                                rtol=rtol, atol=atol, err_msg=err_msg)
+
+
+# A small KITTI-layout tree, a copy of tests/test_cli_track.py's
+# build_kitti_tree: two sequences of 5 and 3 frames at 48 x 96, two cars
+# and a pedestrian per frame, 64-point scans, labels as oracle detections.
+KITTI_P2 = np.array([[50.0, 0.0, 48.0, 0.0],
+                     [0.0, 50.0, 24.0, 0.0],
+                     [0.0, 0.0, 1.0, 0.0]])
+
+
+def _write_calib(path):
+    with open(path, "w") as f:
+        f.write("P2: " + " ".join(str(x) for x in KITTI_P2.ravel()) + "\n")
+        f.write("R_rect " + " ".join(str(x) for x in np.eye(3).ravel())
+                + "\n")
+        f.write("Tr_velo_cam " + " ".join(
+            str(x) for x in np.array([[0.0, -1, 0, 0], [0, 0, -1, 0],
+                                      [1, 0, 0, 0]]).ravel()) + "\n")
+
+
+def build_kitti_tree(tmp_path):
+    import os
+
+    from PIL import Image
+
+    from mmmot_tpu.data.kitti_io import KittiObject, write_kitti_result
+
+    root = str(tmp_path / "kitti")
+    rng = np.random.default_rng(0)
+    for seq, T in (("0000", 5), ("0001", 3)):
+        for sub in (f"image_02/{seq}", f"velodyne/{seq}"):
+            os.makedirs(os.path.join(root, sub), exist_ok=True)
+        os.makedirs(os.path.join(root, "label_02"), exist_ok=True)
+        os.makedirs(os.path.join(root, "calib"), exist_ok=True)
+        objs = []
+        for t in range(T):
+            img = rng.integers(0, 255, (48, 96, 3)).astype(np.uint8)
+            Image.fromarray(img).save(
+                os.path.join(root, f"image_02/{seq}/{t:06d}.png"))
+            pc = np.zeros((64, 4), np.float32)
+            pc[:, 0] = rng.uniform(5, 30, 64)
+            pc[:, 1] = rng.uniform(-5, 5, 64)
+            pc[:, 2] = rng.uniform(-1, 1, 64)
+            pc.tofile(os.path.join(root, f"velodyne/{seq}/{t:06d}.bin"))
+            objs.append(KittiObject(frame=t, track_id=1, obj_type="Car",
+                                    bbox=np.array([10, 10, 40, 40.0]),
+                                    dimensions=np.array([2.0, 4.0, 4.0]),
+                                    location=np.array([0.0, 1.0, 15.0]),
+                                    rotation_y=0.1))
+            objs.append(KittiObject(frame=t, track_id=2, obj_type="Car",
+                                    bbox=np.array([50, 8, 80, 38.0]),
+                                    dimensions=np.array([2.0, 4.0, 4.0]),
+                                    location=np.array([-3.0, 1.0, 20.0]),
+                                    rotation_y=-0.2))
+            objs.append(KittiObject(frame=t, track_id=3,
+                                    obj_type="Pedestrian",
+                                    bbox=np.array([60, 20, 70, 44.0]),
+                                    dimensions=np.array([1.8, 0.6, 0.6]),
+                                    location=np.array([2.0, 1.0, 12.0]),
+                                    rotation_y=0.0))
+        write_kitti_result(objs, os.path.join(root, "label_02",
+                                              f"{seq}.txt"))
+        _write_calib(os.path.join(root, "calib", f"{seq}.txt"))
+    return root
