@@ -16,9 +16,12 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
 3. kernel vs plain: the fused affinity kernel against its plain PyTorch
    version at the flagship shapes (K=3, N=32, D=H=512, hh=256) for B=16
    and B=512 frame pairs, in float32 and bfloat16, with holed masks, an
-   empty frame and a frame of 27 detections among them; every masked link
-   must be exactly 0; kernel, per-launch, plain and library timings,
-   each as device time and as time per call with the host's work;
+   empty frame and a frame of 27 detections among them, and at the
+   revival entry band's shape (B=10 pairs at N=64: 64 state slots
+   against 32 real and 32 padded current slots, one pair with an empty
+   state); every masked link must be exactly 0; kernel, per-launch, plain
+   and library timings, each as device time and as time per call with
+   the host's work;
 4. reference: ``fma`` (``torch.addcmul``) must round once, as its float64
    form does; then the ``tiny_debug`` model tracks a small sequence on the CPU
    (plain versions) and on the GPU (kernels) in float32 with the same
@@ -39,8 +42,32 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    fused-kernel launch per window.  The runner then tracks one window
    again with its stages timed (``stage_timers``), and the fused kernel's
    output on that window's own inputs (B=128 frame pairs) is held against
-   its plain version.  Its JSON line ``{"runner": ...}`` precedes the
-   kernel line.
+   its plain version.  Its JSON line ``{"runner": ...}`` follows;
+7. quality: the same tree gains ``detections/noisy/`` (a detector
+   simulated over the labels: jitter, dropout bursts of 1-4 frames,
+   i.i.d. misses, false positives with overlapping scores), tracked with
+   ``full_mmmot_noisy``'s association (y_det rejection, a 4-frame ghost
+   pool, the IoU gate and prior, coverage rows).  First ``tiny_debug``
+   widths in float32 on the first 20 frames, window 8, two sequences per
+   call, CPU against GPU: the result files, coverage rows included, must
+   match (a coverage row's score may differ within the port's float32
+   tolerance: it is a det-head output, float32 sums in other orders on
+   each device).  Then the full-width net's det and new/end output
+   biases are set from the tree's first frames (``calibrate_heads``:
+   random heads give logits of one sign, and the LP would reject every
+   detection), and, at full width in bfloat16 on phase 5's frames and
+   on the tree's first 16 frames, the revival hybrid must equal the
+   sequential ``step_from_feats`` scan (ids and coverage outputs; 2
+   kernel launches against 16).  Then the
+   full-width noisy runner over the tree (window 64, two sequences per
+   call, the ghost pool carried across the boundary): no dropped
+   detections, finite scores, ids that follow the revival rules, two
+   fused-kernel launches per window; then one window again with its
+   stages timed (extraction, band affinity, the per-frame scan, ids),
+   the auction's rounds per frame, and the kernel's outputs on that
+   window's own band and entry-band inputs held against the plain
+   version.  Its JSON line ``{"quality": ...}`` precedes the kernel
+   line.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -53,13 +80,14 @@ import contextlib
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from mmmot_tpu_torch.assoc.auction import auction_lap
-from mmmot_tpu_torch.config import full_mmmot, tiny_debug
+from mmmot_tpu_torch.config import full_mmmot, full_mmmot_noisy, tiny_debug
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels import build as kbuild
 from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
@@ -181,7 +209,7 @@ def affinity_bound(mp, mc, params, dtype):
     flops = float((2 * K * np_ * nc * (D * H + H)
                    + 2 * (np_ + nc) * (D * hh + hh)).sum())
     item = torch.empty((), dtype=dtype).element_size()
-    B = mp.shape[0]
+    B, N = mp.shape
     nbytes = (2 * B * K * N * D * item + 2 * B * N
               + sum(v.numel() * v.element_size() for v in params.values())
               + 2 * (B * N * N + B * N) * item)
@@ -190,97 +218,126 @@ def affinity_bound(mp, mc, params, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_agreement(got, want, a, b, mp, mc, params, dtype, B):
+def check_agreement(got, want, a, b, mp, mc, params, dtype, label):
     """Kernel vs plain within the stated tolerance; every masked link
-    exactly 0.  Returns the max |kernel - plain| per output."""
+    exactly 0.  ``label`` names the input in messages.  Returns the max
+    |kernel - plain| per output."""
     errs = {k: max_err(x, y) for k, x, y in zip(got._fields, got, want)}
     if dtype == torch.float32:
         for k, x, y in zip(got._fields, got, want):
             if errs[k] > TOL_F32 * scale_of(y):
                 raise AssertionError(
-                    f"B={B} float32 {k}: max |kernel - plain| {errs[k]} > "
+                    f"{label} float32 {k}: max |kernel - plain| {errs[k]} > "
                     f"{TOL_F32} x {scale_of(y)}")
     else:
         if errs["link"] > TOL_BF16 * scale_of(want.link):
-            raise AssertionError(f"B={B} bfloat16 link: {errs['link']} > "
+            raise AssertionError(f"{label} bfloat16 link: {errs['link']} > "
                                  f"{TOL_BF16} x {scale_of(want.link)}")
         staged = heads_plain(got.link, a, b, mp, mc, params)
         for k in ("link_norm", "new", "end"):
             e = max_err(getattr(got, k), getattr(staged, k))
             if e > TOL_BF16 * scale_of(getattr(staged, k)):
                 raise AssertionError(
-                    f"B={B} bfloat16 {k} from the kernel's link: {e} > "
+                    f"{label} bfloat16 {k} from the kernel's link: {e} > "
                     f"{TOL_BF16} x {scale_of(getattr(staged, k))}")
     masked = ~(mp[:, :, None] & mc[:, None, :])
     if (got.link[masked] != 0).any():
-        raise AssertionError(f"B={B} {str(dtype)[6:]}: nonzero masked link")
+        raise AssertionError(f"{label} {str(dtype)[6:]}: nonzero masked link")
     return errs
+
+
+def entry_band_inputs(dtype, gen, dev, B=None, D=512):
+    """B frame pairs shaped like the revival hybrid's entry band at
+    N = 2 * 32 = 64 slots (``tracker/sequence.py::_revival_track``): the
+    previous side is a state of 32 live slots and 32 ghost slots (a
+    random subset of the 64 valid), the current side 32 real slots (a
+    random subset valid) and 32 padded ones.  Pair 0 has an empty
+    previous side, as every entry pair of a run's first window has."""
+    B = B or ENTRY_B
+    n = 2 * N
+    a = torch.randn((B, 3, n, D), generator=gen, device=dev).to(dtype)
+    b = torch.randn((B, 3, n, D), generator=gen, device=dev).to(dtype)
+    mp = torch.rand((B, n), generator=gen, device=dev) < 0.6
+    mc = torch.rand((B, n), generator=gen, device=dev) < 0.7
+    mc[:, N:] = False
+    mp[0] = False
+    return a, b, mp.contiguous(), mc.contiguous()
+
+
+def measure_kernel(a, b, mp, mc, params, dtype, label):
+    """Kernel vs plain on one input, then kernel, per-launch, plain and
+    library timings (device time, and time per call with the host's
+    work; ``cuda_ms``) and the bound."""
+    B = a.shape[0]
+    with f32_parity(dtype == torch.float32):
+        got = fused_affinity(a, b, mp, mc, params)
+        want = affinity_plain(a, b, mp, mc, params)
+        torch.cuda.synchronize()
+        errs = check_agreement(got, want, a, b, mp, mc, params, dtype,
+                               label)
+        # The plain version's broadcast matmul takes tens of GB at
+        # B=512: time it before the kernel's scratch can split the
+        # allocator's cached block.
+        del want
+        torch.cuda.empty_cache()
+        plain_ms, plain_call_ms = cuda_ms(
+            lambda: affinity_plain(a, b, mp, mc, params), 3)
+        torch.cuda.empty_cache()
+        products, finish, _ = affinity_launches(a, b, mp, mc, params)
+        ms, call_ms = cuda_ms(
+            lambda: fused_affinity(a, b, mp, mc, params), 20)
+        launch_ms = {"products": cuda_ms(products, 20)[0],
+                     "finish": cuda_ms(finish, 20)[0]}
+        # Library yardstick for the dominant product only: one batched
+        # matmul [K, B*N*N, D] x [K, D, H] over all pairs (no fused
+        # library call computes the whole function).
+        K, D, H = params["w1"].shape
+        pair = (a[:, :, :, None] - b[:, :, None]).abs()
+        pair = pair.permute(1, 0, 2, 3, 4).reshape(K, -1, D).contiguous()
+        lib_ms, lib_call_ms = cuda_ms(lambda: torch.bmm(pair, params["w1"]),
+                                      5)
+        del pair, got
+    bound_ms, bound_by = affinity_bound(mp, mc, params, dtype)
+    per_pair = mp.sum(1) * mc.sum(1)
+    pairs = int(per_pair.sum())
+    # Launch 1's blocks with work, computed from the masks (the kernel
+    # does not count them): one per 64 valid pairs and branch, and a
+    # head block per side with detections.
+    tiles = int(3 * ((per_pair + 63) // 64).sum()
+                + mp.any(1).sum() + mc.any(1).sum())
+    n = mp.shape[1]
+    stage(f"kernel {str(dtype)[6:]} {label} ({pairs} valid pairs of "
+          f"{B * n * n}; {tiles} blocks with work by the masks): "
+          f"max err {errs} kernel {ms:.4f} ms (products "
+          f"{launch_ms['products']:.4f}, finish "
+          f"{launch_ms['finish']:.4f}; per call with the host "
+          f"{call_ms:.4f}) plain {plain_ms:.4f} ms (with the host "
+          f"{plain_call_ms:.4f}) bmm {lib_ms:.4f} ms (with the host "
+          f"{lib_call_ms:.4f}) bound {bound_ms:.4f} ms ({bound_by})")
+    torch.cuda.empty_cache()
+    return dict(errs=errs, ms=ms, call_ms=call_ms, launch_ms=launch_ms,
+                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
+                library_ms=lib_ms, library_call_ms=lib_call_ms,
+                bound_ms=bound_ms, bound_by=bound_by, valid_pairs=pairs,
+                frame_pairs=B, slots=n)
 
 
 def check_kernel(net, dev):
     """Phase 3: kernel vs plain in float32 and bfloat16, at B=16 (the
     main path's window) and B=512 (one T=512 sequence of bench.py's
-    workload); kernel, per-launch, plain and library timings (device
-    time, and time per call with the host's work; ``cuda_ms``)."""
+    workload) with N=32 slots, and at the revival entry band's shape
+    (B=10 frame pairs at N=64)."""
     gen = torch.Generator(device=dev).manual_seed(1)
     report = {}
     for dtype in (torch.float32, torch.bfloat16):
         params = build_affinity_params(net, dtype)
         for B in (T, 512):
-            a, b, mp, mc = affinity_inputs(dtype, gen, dev, B)
-            with f32_parity(dtype == torch.float32):
-                got = fused_affinity(a, b, mp, mc, params)
-                want = affinity_plain(a, b, mp, mc, params)
-                torch.cuda.synchronize()
-                errs = check_agreement(got, want, a, b, mp, mc, params,
-                                       dtype, B)
-                # The plain version's broadcast matmul takes tens of GB at
-                # B=512: time it before the kernel's scratch can split the
-                # allocator's cached block.
-                del want
-                torch.cuda.empty_cache()
-                plain_ms, plain_call_ms = cuda_ms(
-                    lambda: affinity_plain(a, b, mp, mc, params), 3)
-                torch.cuda.empty_cache()
-                products, finish, _ = affinity_launches(a, b, mp, mc,
-                                                        params)
-                ms, call_ms = cuda_ms(
-                    lambda: fused_affinity(a, b, mp, mc, params), 20)
-                launch_ms = {"products": cuda_ms(products, 20)[0],
-                             "finish": cuda_ms(finish, 20)[0]}
-                # Library yardstick for the dominant product only: one
-                # batched matmul [K, B*N*N, D] x [K, D, H] over all pairs
-                # (no fused library call computes the whole function).
-                K, D, H = params["w1"].shape
-                pair = (a[:, :, :, None] - b[:, :, None]).abs()
-                pair = pair.permute(1, 0, 2, 3, 4).reshape(K, -1, D) \
-                    .contiguous()
-                lib_ms, lib_call_ms = cuda_ms(
-                    lambda: torch.bmm(pair, params["w1"]), 5)
-                del pair
-            bound_ms, bound_by = affinity_bound(mp, mc, params, dtype)
-            per_pair = mp.sum(1) * mc.sum(1)
-            pairs = int(per_pair.sum())
-            # Launch 1's blocks with work, computed from the masks (the
-            # kernel does not count them): one per 64 valid pairs and
-            # branch, and a head block per side with detections.
-            tiles = int(3 * ((per_pair + 63) // 64).sum()
-                        + mp.any(1).sum() + mc.any(1).sum())
-            report[dtype, B] = dict(
-                errs=errs, ms=ms, call_ms=call_ms, launch_ms=launch_ms,
-                plain_ms=plain_ms, plain_call_ms=plain_call_ms,
-                library_ms=lib_ms, library_call_ms=lib_call_ms,
-                bound_ms=bound_ms, bound_by=bound_by, valid_pairs=pairs)
-            stage(f"kernel {str(dtype)[6:]} B={B} ({pairs} valid pairs of "
-                  f"{B * N * N}; {tiles} blocks with work by the masks): "
-                  f"max err {errs} kernel {ms:.4f} ms (products "
-                  f"{launch_ms['products']:.4f}, finish "
-                  f"{launch_ms['finish']:.4f}; per call with the host "
-                  f"{call_ms:.4f}) plain {plain_ms:.4f} ms (with the host "
-                  f"{plain_call_ms:.4f}) bmm {lib_ms:.4f} ms (with the host "
-                  f"{lib_call_ms:.4f}) bound {bound_ms:.4f} ms ({bound_by})")
-            del a, b, got
-            torch.cuda.empty_cache()
+            report[dtype, B] = measure_kernel(
+                *affinity_inputs(dtype, gen, dev, B), params, dtype,
+                f"B={B}")
+        report[dtype, "entry"] = measure_kernel(
+            *entry_band_inputs(dtype, gen, dev), params, dtype,
+            f"entry band B={ENTRY_B} N={2 * N}")
     return report
 
 
@@ -393,36 +450,41 @@ def reference_check(dev):
 
 
 @contextlib.contextmanager
-def stage_timers(mod):
-    """While open, the tracking path's own stage functions (extraction,
-    ``mod.affinity``, the association, the id propagation) run wrapped in
-    timers that synchronise the device before and after each call.
-    Yields (times {stage: ms, summed over calls}, seen {"args", "out"}:
-    the fused kernel's last arguments and output)."""
+def stage_timers(mod, stages=None):
+    """While open, the tracking path's own stage functions run wrapped in
+    timers that synchronise the device before and after each call:
+    ``stages`` {name: (object, attribute)}, by default the flagship's
+    (extraction, ``mod.affinity``, the association, the id propagation).
+    Yields (times {stage: ms, summed over calls}, seen: "args" and "out"
+    of the fused kernel's last call, "kernel_calls" [(args, out)] of every
+    call, and "calls" {stage: [(ms, auction rounds run)] per call})."""
     import mmmot_tpu_torch.tracker.sequence as seq_mod
     import mmmot_tpu_torch.tracker.tracker as trk_mod
 
-    times, seen = {}, {}
+    times, seen = {}, {"calls": {}, "kernel_calls": []}
 
     def timer(name, fn):
         def run(*args, **kw):
             torch.cuda.synchronize()
-            t = time.perf_counter()
+            t, r0 = time.perf_counter(), auction_lap.rounds
             r = fn(*args, **kw)
             torch.cuda.synchronize()
-            times[name] = times.get(name, 0.0) \
-                + (time.perf_counter() - t) * 1e3
+            ms = (time.perf_counter() - t) * 1e3
+            times[name] = times.get(name, 0.0) + ms
+            seen["calls"].setdefault(name, []).append(
+                (ms, auction_lap.rounds - r0))
             return r
         return run
 
     def kernel(*args):
         seen["args"], seen["out"] = args, fused_affinity(*args)
+        seen["kernel_calls"].append((args, seen["out"]))
         return seen["out"]
 
-    stages = {"extract": (seq_mod, "extract_frames_batched"),
-              "affinity": (mod, "affinity"),
-              "auction": (seq_mod, "associate"),
-              "ids": (seq_mod, "propagate_ids")}
+    stages = stages or {"extract": (seq_mod, "extract_frames_batched"),
+                        "affinity": (mod, "affinity"),
+                        "auction": (seq_mod, "associate"),
+                        "ids": (seq_mod, "propagate_ids")}
     saved = {k: getattr(m, n) for k, (m, n) in stages.items()}
     for k, (m, n) in stages.items():
         setattr(m, n, timer(k, saved[k]))
@@ -431,8 +493,10 @@ def stage_timers(mod):
         yield times, seen
     finally:
         for k, (m, n) in stages.items():
-            setattr(m, n, saved[k])
-        del mod.affinity                # the bound method again
+            if m is mod:
+                delattr(m, n)           # the bound method again
+            else:
+                setattr(m, n, saved[k])
         trk_mod.fused_affinity = fused_affinity
 
 
@@ -631,14 +695,6 @@ def write_kitti_tree(root: str, seed: int = 0):
     return sum(T for _, T in RUNNER_SEQS)
 
 
-def result_files(d: str):
-    import os
-
-    return {n: open(os.path.join(d, n), "rb").read()
-            for n in sorted(os.listdir(d))
-            if os.path.isfile(os.path.join(d, n))}
-
-
 def runner_agreement(root: str, dev, tmp: str):
     """tiny_debug float32 on the tree's first frames, window 8, two
     sequences per call, on the CPU (plain versions) and on the GPU
@@ -706,7 +762,7 @@ def runner_split(mod, data, dev, out_dir: str):
     with torch.inference_mode():
         want = affinity_plain(a, b, mp, mc, params)
         errs = check_agreement(seen["out"], want, a, b, mp, mc, params,
-                               torch.bfloat16, B)
+                               torch.bfloat16, f"runner window B={B}")
     stage(f"runner window vs plain: B={B} bfloat16, "
           f"{int((mp.sum(1) * mc.sum(1)).sum())} valid pairs of the "
           f"runner's features: max err {errs}")
@@ -714,40 +770,34 @@ def runner_split(mod, data, dev, out_dir: str):
     return times, n_det, rounds, errs
 
 
-def runner_phase(net, dev, smi: str):
+def runner_phase(net, dev, smi: str, root: str, tmp: str):
     """Phase 6: the agreement gate, then the flagship ``full_mmmot``
-    runner at full width over the whole tree (window 64, two sequences
-    per call: state carried across windows, the last window padded)."""
+    runner at full width over the whole tree at ``root`` (window 64, two
+    sequences per call: state carried across windows, the last window
+    padded)."""
     import dataclasses
-    import tempfile
 
-    with tempfile.TemporaryDirectory() as tmp:
-        root = f"{tmp}/kitti"
-        t = time.perf_counter()
-        n_frames = write_kitti_tree(root)
-        stage(f"runner tree: {n_frames} frames of {KITTI_H}x{KITTI_W} "
-              f"written in {time.perf_counter() - t:.1f} s")
-        agreement = runner_agreement(root, dev, tmp)
+    agreement = runner_agreement(root, dev, tmp)
 
-        data = dataclasses.replace(full_mmmot().data, root=root)
-        mod = TrackingModule(net)
-        fused_affinity.launches = 0
-        stats = track_kitti_sequences(
-            mod, data, f"{tmp}/full", window=RUNNER_WINDOW,
-            batch_sequences=RUNNER_S)
-        launches = fused_affinity.launches
-        if launches != stats["n_windows"]:
-            raise AssertionError(f"runner: {launches} fused-kernel launches "
-                                 f"for {stats['n_windows']} windows")
-        if stats["n_dropped"] != 0:
-            raise AssertionError(f"runner: n_dropped {stats['n_dropped']}")
-        for seq, o in stats["outputs"].items():
-            if not np.isfinite(o["det_score"]).all():
-                raise AssertionError(f"{seq}: non-finite det scores")
-            check_ids(torch.as_tensor(o["ids"]),
-                      torch.as_tensor(o["det_mask"]))
-        split, n_det, rounds, split_errs = runner_split(
-            mod, data, dev, f"{tmp}/split")
+    data = dataclasses.replace(full_mmmot().data, root=root)
+    mod = TrackingModule(net)
+    fused_affinity.launches = 0
+    stats = track_kitti_sequences(
+        mod, data, f"{tmp}/full", window=RUNNER_WINDOW,
+        batch_sequences=RUNNER_S)
+    launches = fused_affinity.launches
+    if launches != stats["n_windows"]:
+        raise AssertionError(f"runner: {launches} fused-kernel launches "
+                             f"for {stats['n_windows']} windows")
+    if stats["n_dropped"] != 0:
+        raise AssertionError(f"runner: n_dropped {stats['n_dropped']}")
+    for seq, o in stats["outputs"].items():
+        if not np.isfinite(o["det_score"]).all():
+            raise AssertionError(f"{seq}: non-finite det scores")
+        check_ids(torch.as_tensor(o["ids"]),
+                  torch.as_tensor(o["det_mask"]))
+    split, n_det, rounds, split_errs = runner_split(
+        mod, data, dev, f"{tmp}/split")
     counted = stats["window_s"][1:]
     result = {
         "frames": stats["frames_loaded"], "windows": stats["n_windows"],
@@ -772,6 +822,425 @@ def runner_phase(net, dev, smi: str):
           f"{result['png_decode_ms_per_frame']:.1f} ms/frame, MOTA {result['mota_random_weights']:.4f} HOTA "
           f"{result['hota_random_weights']:.4f} (random weights), "
           f"{launches} launches, on {smi}")
+    return result
+
+
+# Phase 7: the noisy-detector quality stack (full_mmmot_noisy's
+# association: y_det rejection, revival window K=4, the IoU gate and
+# prior, coverage for the first missed frame) on noisy detections.
+QUALITY_K = 4
+ENTRY_B = RUNNER_S * (QUALITY_K + 1)   # a window's entry band: S*(K+1)
+
+
+def write_noisy_detections(root: str, seed: int = 1):
+    """``detections/noisy/<seq>.txt`` beside the tree's labels: a
+    detector simulated over them (the recipe of the JAX package's
+    ``scripts/make_bench_tree.py``): boxes jittered by 2 % of their size,
+    per-track dropout bursts of 1-4 frames (Poisson, 2 per track), 2 %
+    i.i.d. misses, and false positives (Poisson, 1.2 per frame, 30 % of
+    them half a box beside a car) scored N(0.45, 0.15) against the true
+    detections' N(0.88, 0.06), so the two overlap.  Returns (detections,
+    false positives)."""
+    import os
+
+    from mmmot_tpu_torch.data.kitti_io import (KittiObject,
+                                               read_kitti_tracking_labels,
+                                               write_kitti_result)
+
+    rng = np.random.default_rng(seed)
+    hi = np.array([KITTI_W - 1, KITTI_H - 1] * 2, float)
+    n_dets = n_fp = 0
+    for seq, T_seq in RUNNER_SEQS:
+        gt = read_kitti_tracking_labels(os.path.join(root, "label_02",
+                                                     f"{seq}.txt"))
+        tracks = {}
+        for t in sorted(gt):
+            for o in gt[t]:
+                tracks.setdefault(o.track_id, []).append(o)
+        dets = []
+        for tid in sorted(tracks):
+            frames = [o.frame for o in tracks[tid]]
+            drop = set()
+            for _ in range(rng.poisson(2.0)):
+                f0 = int(rng.choice(frames))
+                drop.update(range(f0, f0 + int(rng.integers(1, 5))))
+            for o in tracks[tid]:
+                if o.frame in drop or rng.random() < 0.02:
+                    continue
+                l, tp, r, b = o.bbox
+                w, h = r - l, b - tp
+                j = rng.normal(0, 0.02, 4) * [w, h, w, h]
+                box = np.clip(o.bbox + j, 0, hi)
+                if min(box[2] - box[0], box[3] - box[1]) < 4:
+                    continue
+                jn = (abs(j[0]) + abs(j[2])) / w + (abs(j[1]) + abs(j[3])) / h
+                dets.append(KittiObject(
+                    frame=o.frame, track_id=0, obj_type="Car", bbox=box,
+                    dimensions=o.dimensions, location=o.location,
+                    rotation_y=o.rotation_y, score=float(np.clip(
+                        rng.normal(0.88, 0.06) - 0.5 * jn, 0.05, 1.0))))
+        for t in range(T_seq):
+            cars = gt.get(t, [])
+            for _ in range(rng.poisson(1.2)):
+                w, h = rng.uniform(40, 160), rng.uniform(30, 80)
+                if cars and rng.random() < 0.3:
+                    a = cars[int(rng.integers(len(cars)))].bbox
+                    cx = (a[0] + a[2]) / 2 + rng.choice([-1, 1]) * (
+                        a[2] - a[0]) * 0.6
+                    cy = (a[1] + a[3]) / 2 + rng.normal(0, (a[3] - a[1])
+                                                        * 0.2)
+                else:
+                    cx, cy = rng.uniform(30, KITTI_W - 30), rng.uniform(
+                        100, 300)
+                box = np.clip([cx - w / 2, cy - h / 2, cx + w / 2,
+                               cy + h / 2], 0, hi)
+                if min(box[2] - box[0], box[3] - box[1]) < 8:
+                    continue
+                dets.append(KittiObject(
+                    frame=t, track_id=0, obj_type="Car", bbox=box,
+                    score=float(np.clip(rng.normal(0.45, 0.15), 0.05, 1.0))))
+                n_fp += 1
+        dets.sort(key=lambda o: o.frame)
+        for i, o in enumerate(dets):
+            o.track_id = i
+        write_kitti_result(dets, os.path.join(root, "detections", "noisy",
+                                              f"{seq}.txt"))
+        n_dets += len(dets)
+    return n_dets, n_fp
+
+
+# A result row's score may differ by the port's float32 tolerance (that
+# of tests/torch_port_fixtures.py) plus half a unit of its sixth printed
+# decimal: a coverage row is scored by its track's last det-head
+# confidence, float32 sums that cuBLAS and the CPU take in other orders.
+SCORE_RTOL, SCORE_ATOL = 1e-4, 1e-5 + 5e-7
+
+
+def results_match(a, b, what: str) -> int:
+    """Result trees ``a`` and ``b`` ({name: bytes}) equal byte for byte,
+    except that a row's last field (its score) may differ within
+    ``SCORE_RTOL``/``SCORE_ATOL``.  Returns the rows that used the
+    allowance."""
+    if sorted(a) != sorted(b) or len(a) < 4:
+        raise AssertionError(f"{what}: files {sorted(a)} vs {sorted(b)}")
+    loose = 0
+    for name in a:
+        if a[name] == b[name]:
+            continue
+        la, lb = a[name].decode().splitlines(), b[name].decode().splitlines()
+        if name.startswith(("summary", "hota")) or len(la) != len(lb):
+            raise AssertionError(f"{what}: {name} differs")
+        for x, y in zip(la, lb):
+            if x == y:
+                continue
+            x, y = x.split(), y.split()
+            if x[:-1] != y[:-1] or abs(float(x[-1]) - float(y[-1])) > (
+                    SCORE_ATOL + SCORE_RTOL * abs(float(y[-1]))):
+                raise AssertionError(f"{what}: {name}: {x} vs {y}")
+            loose += 1
+    return loose
+
+
+def noisy_tiny_net(device):
+    """tiny_debug with seeded random weights, the new/end logits lowered
+    and the det-head logits raised, so that links, births, LP rejections
+    and ghosts all occur (the weights of ``tests/test_torch_quality.py``'s
+    kind)."""
+    net = init_random_(TrackingNet(tiny_debug().model, device=device), 7)
+    with torch.no_grad():
+        for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+            head.dense_1.bias.fill_(-1.0)
+        net.det_head.dense_1.bias.fill_(1.0)
+    return net
+
+
+def quality_counts(outputs, K: int):
+    """LP rejections (valid slots without an id), revived ids (an id absent
+    from a frame after being present, then present again within K more
+    frames) and coverage rows, over a runner's outputs."""
+    rej = rev = cov = 0
+    for o in outputs.values():
+        ids, dm = o["ids"], o["det_mask"]
+        rej += int(((ids < 0) & dm).sum())
+        cov += int((o["ghost_ids"] >= 0).sum())
+        seen = [set(r[r >= 0].tolist()) for r in ids]
+        for t in range(1, len(seen) - 1):
+            gone = seen[t - 1] - seen[t]
+            rev += len(gone & set().union(*seen[t + 1:t + 1 + K]))
+    return {"lp_rejections": rej, "revived_ids": rev, "coverage_rows": cov}
+
+
+def check_quality_ids(ids, det_mask, K: int) -> None:
+    """ids [T, N] of the quality stack: -1 at every empty slot (and at a
+    detection the LP rejected); within a frame unique; a fresh id is the
+    next one, in slot order; an id seen before comes back within K + 1
+    frames of its last (revival)."""
+    ids, dm = np.asarray(ids), np.asarray(det_mask)
+    if ids.shape != dm.shape or (ids[~dm] != -1).any():
+        raise AssertionError("ids are not -1 at every empty slot")
+    next_id, last = 0, {}
+    for t in range(len(ids)):
+        row = ids[t][ids[t] >= 0].tolist()
+        if len(set(row)) != len(row):
+            raise AssertionError(f"frame {t}: repeated id")
+        for i in row:
+            if i in last:
+                if t - last[i] > K + 1:
+                    raise AssertionError(f"frame {t}: id {i} back after "
+                                         f"{t - last[i]} frames")
+            elif i != next_id:
+                raise AssertionError(f"frame {t}: id {i}, expected an "
+                                     f"earlier id or {next_id}")
+            else:
+                next_id += 1
+            last[i] = t
+
+
+def quality_agreement(root: str, dev, tmp: str):
+    """tiny_debug widths with full_mmmot_noisy's association, float32, on
+    the first frames of both sequences, window 8, two per call, on the
+    CPU (plain versions) and on the GPU (kernels): the result files,
+    coverage rows included, must match (``results_match``)."""
+    import dataclasses
+
+    cfg = full_mmmot_noisy()
+    data = dataclasses.replace(tiny_debug().data, root=root,
+                               det_source="noisy")
+    files, counts = {}, None
+    for device in ("cpu", dev):
+        before = fused_affinity.launches
+        out = f"{tmp}/quality_agree_{torch.device(device).type}"
+        stats = track_kitti_sequences(
+            TrackingModule(noisy_tiny_net(device), cfg.assoc), data, out,
+            window=AGREE_WINDOW, batch_sequences=RUNNER_S,
+            max_frames=AGREE_FRAMES, score_sweep=(0.5,))
+        launched = fused_affinity.launches - before
+        if (device == "cpu") == (launched > 0):
+            raise AssertionError(f"quality agreement on {device}: "
+                                 f"{launched} kernel launches")
+        if stats["n_dropped"]:
+            raise AssertionError(f"{device}: n_dropped {stats['n_dropped']}")
+        files[device] = result_files(out)
+        counts = quality_counts(stats["outputs"], QUALITY_K)
+    if counts["coverage_rows"] == 0:
+        raise AssertionError("quality agreement: no coverage row to compare")
+    loose = results_match(files["cpu"], files[dev], "quality agreement")
+    stage(f"quality agreement: tiny f32 noisy, {AGREE_FRAMES} frames x "
+          f"{RUNNER_S} sequences, window {AGREE_WINDOW}: "
+          f"{len(files['cpu'])} files equal on CPU and GPU ({loose} "
+          f"coverage scores within the float32 tolerance); {counts}")
+    return dict(frames=AGREE_FRAMES, window=AGREE_WINDOW,
+                files=sorted(files["cpu"]), loose_score_rows=loose, **counts)
+
+
+def result_files(d: str):
+    """{relative path: bytes} of every file under ``d``."""
+    import os
+
+    out = {}
+    for base, _, names in os.walk(d):
+        for n in names:
+            p = os.path.join(base, n)
+            out[os.path.relpath(p, d)] = open(p, "rb").read()
+    return out
+
+
+def quality_strategy_gate(net, dev, inputs):
+    """The revival hybrid against the sequential ``step_from_feats`` scan
+    at full width in bf16 with full_mmmot_noisy's association, on each of
+    ``inputs`` {name: (images, clouds, boxes, det_mask, proj,
+    cloud_valid)}: ids and coverage outputs equal, 2 kernel launches
+    against one per frame."""
+    cfg = full_mmmot_noisy()
+    report = {}
+    for what, (images, clouds, boxes, det_mask, proj, cv) in inputs.items():
+        n_valid, T_in = int(det_mask.sum()), det_mask.shape[0]
+        kw = dict(crop_size=net.cfg.appearance.crop_size,
+                  points_per_det=net.cfg.point.point_len, cloud_valid=cv,
+                  compact_capacity=-(-n_valid // CHUNK) * CHUNK,
+                  extract_chunk=CHUNK,
+                  crop_window=crop_window(boxes, det_mask, images.shape[2]))
+        outs, launches = {}, {}
+        for name, hybrid in (("revival", None), ("sequential", False)):
+            fused_affinity.launches = 0
+            out = track_sequence_from_frames(
+                TrackingModule(net, cfg.assoc, hybrid_presolve=hybrid),
+                images, clouds, boxes, det_mask, proj, **kw)
+            outs[name] = {k: v.cpu() for k, v in out.items()}
+            launches[name] = fused_affinity.launches
+        if launches != {"revival": 2, "sequential": T_in}:
+            raise AssertionError(f"strategy gate {what}: launches "
+                                 f"{launches}")
+        got, want = outs["revival"], outs["sequential"]
+        for k in ("ids", "ghost_ids", "ghost_boxes", "ghost_scores"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"strategy gate {what}: {k} differ")
+        if max_err(got["det_score"], want["det_score"]) > 1e-6:
+            raise AssertionError(f"strategy gate {what}: det_score differ")
+        check_quality_ids(got["ids"], det_mask.cpu(), QUALITY_K)
+        counts = quality_counts({"s": {
+            "ids": got["ids"].numpy(), "ghost_ids": got["ghost_ids"].numpy(),
+            "det_mask": det_mask.cpu().numpy()}}, QUALITY_K)
+        report[what] = dict(frames=T_in, launches=launches, **counts)
+        stage(f"quality strategy gate ({what}): revival hybrid == "
+              f"sequential scan on {T_in} frames at full width "
+              f"({launches}); {counts}")
+    return report
+
+
+def quality_window_split(mod, data, out_dir: str):
+    """One window of the noisy runner (the first 64 frames of both
+    sequences) with its stages timed: extraction, band affinity (the
+    fused kernel's two calls), scan (per frame: normalisation, gate,
+    new/end heads and the auction; the auction alone as scan_auction)
+    and ids (per frame: ids and the ghost pool).  The kernel's outputs on that window's own inputs (the bands,
+    B = S*(K+1)*64 at N=32, and the entry band, B = S*(K+1) at N=64)
+    are held against the plain version."""
+    import mmmot_tpu_torch.tracker.sequence as seq_mod
+    import mmmot_tpu_torch.tracker.tracker as trk_mod
+
+    stages = {"extract": (seq_mod, "extract_frames_batched"),
+              "band_affinity": (mod, "affinity"),
+              "scan": (mod, "frame_decisions"),
+              "scan_auction": (trk_mod, "associate"),
+              "ids": (seq_mod, "advance_pool")}
+    auction_lap.rounds = 0
+    with stage_timers(mod, stages) as (times, seen):
+        stats = track_kitti_sequences(
+            mod, data, out_dir, window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
+            evaluate=False)
+    if stats["n_windows"] != 1 or len(seen["kernel_calls"]) != 2:
+        raise AssertionError(f"split: {stats['n_windows']} windows, "
+                             f"{len(seen['kernel_calls'])} kernel calls")
+    times["window"] = stats["window_s"][0] * 1e3
+    times["load"] = stats["load_s"] * 1e3
+    rounds = sorted(r for _, r in seen["calls"]["scan"])
+    errs = {}
+    with torch.inference_mode():
+        for what, (args, out) in zip(("bands", "entry"),
+                                     seen["kernel_calls"]):
+            a, b, mp, mc, params = args
+            want = affinity_plain(a, b, mp, mc, params)
+            errs[what] = check_agreement(
+                out, want, a, b, mp, mc, params, torch.bfloat16,
+                f"noisy window {what} B={a.shape[0]} N={a.shape[2]}")
+            errs[what]["frame_pairs"], errs[what]["slots"] = a.shape[0], \
+                a.shape[2]
+            del want
+    torch.cuda.empty_cache()
+    return times, rounds, errs
+
+
+def calibrate_heads(net, data, dev, frames: int = 16):
+    """Set the output biases of the det head and the new/end heads of the
+    seeded random ``net`` from the data, so that the y_det LP sees what a
+    trained net gives it: det-head logits with median +1 and raw new/end
+    logits with median -0.5 over the first ``frames`` frames of sequence
+    0000.  Most unlinked detections then start tracks (det + new >= 0),
+    links beat both arms, and the lower tail is rejected.  Random heads
+    give logits of one sign for every detection (at seed 0 the LP
+    rejects them all).  Returns ({the medians before, the shifts}, that
+    sequence's first frames as the tracker's inputs)."""
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.tracker.sequence import extract_frames_batched
+
+    a = KittiTrackingDataset(data, max_cloud_points=32768).load_sequence(
+        "0000", max_frames=frames)
+    window = tuple(torch.as_tensor(x, device=dev) for x in (
+        a.images, a.clouds, a.boxes, a.det_mask, a.proj, a.cloud_valid))
+    images, clouds, boxes, dm, _, cv = (x[None] for x in window)
+    mod = TrackingModule(net)
+    n_valid = int(dm.sum())
+    feats, kept = extract_frames_batched(
+        mod, images, clouds, boxes, dm, torch.as_tensor(a.proj, device=dev),
+        net.cfg.appearance.crop_size, net.cfg.point.point_len,
+        -(-n_valid // CHUNK) * CHUNK, CHUNK,
+        crop_window(boxes, dm, KITTI_W), cv)
+    feats, kept = {k: v[0] for k, v in feats.items()}, kept[0]
+    aff = mod.affinity({k: v[:-1] for k, v in feats.items()},
+                       {k: v[1:] for k, v in feats.items()}, kept[:-1],
+                       kept[1:])
+    med = {"det": mod.det_score(feats["fused"], kept)[kept],
+           "new": aff.new[kept[1:]], "end": aff.end[kept[:-1]]}
+    med = {k: float(v.float().median()) for k, v in med.items()}
+    shift = {"det": 1.0 - med["det"], "new": -0.5 - med["new"],
+             "end": -0.5 - med["end"]}
+    with torch.no_grad():
+        net.det_head.dense_1.bias += shift["det"]
+        net.new_end.new_mlp.dense_1.bias += shift["new"]
+        net.new_end.end_mlp.dense_1.bias += shift["end"]
+    stage(f"quality heads: medians {med} shifted by {shift}")
+    return {"median_logits": med, "bias_shift": shift}, window
+
+
+def quality_phase(net, dev, smi: str, root: str, tmp: str):
+    """Phase 7: the agreement gate; then, with the heads' output biases
+    set from the data (``calibrate_heads``; this is the last phase to use
+    ``net``), the strategy gate and ``full_mmmot_noisy`` through the
+    runner at full width over the whole tree (window 64, two sequences
+    per call: the ghost pool carried across the window boundary), then
+    one window with its stages timed."""
+    import dataclasses
+
+    agreement = quality_agreement(root, dev, tmp)
+    cfg = full_mmmot_noisy()
+    data = dataclasses.replace(cfg.data, root=root)
+    heads, tree_frames = calibrate_heads(net, data, dev)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    gate = quality_strategy_gate(net, dev, {
+        "main_path_frames": synthetic_frames(gen, dev, T, H_IMG, W_IMG,
+                                             M_PTS, N, 6, 19) + (None,),
+        "tree_frames": tree_frames})
+    mod = TrackingModule(net, cfg.assoc)
+    fused_affinity.launches = auction_lap.rounds = 0
+    stats = track_kitti_sequences(
+        mod, data, f"{tmp}/noisy", window=RUNNER_WINDOW,
+        batch_sequences=RUNNER_S)
+    launches, rounds = fused_affinity.launches, auction_lap.rounds
+    if launches != 2 * stats["n_windows"] or stats["n_windows"] < 2:
+        raise AssertionError(f"quality runner: {launches} fused-kernel "
+                             f"launches for {stats['n_windows']} windows")
+    if stats["n_dropped"] != 0:
+        raise AssertionError(f"quality runner: n_dropped "
+                             f"{stats['n_dropped']}")
+    for seq, o in stats["outputs"].items():
+        for k in ("det_score", "ghost_scores", "ghost_boxes"):
+            if not np.isfinite(o[k]).all():
+                raise AssertionError(f"{seq}: non-finite {k}")
+        check_quality_ids(o["ids"], o["det_mask"], QUALITY_K)
+    counts = quality_counts(stats["outputs"], QUALITY_K)
+    split, frame_rounds, split_errs = quality_window_split(
+        mod, data, f"{tmp}/noisy_split")
+    counted = stats["window_s"][1:]
+    result = {
+        "config": cfg.name, "frames": stats["frames_loaded"],
+        "windows": stats["n_windows"], "S": RUNNER_S,
+        "window": RUNNER_WINDOW, "fps": stats["fps"],
+        "frames_counted": stats["total_frames"],
+        "window_ms": [1e3 * x for x in stats["window_s"]],
+        "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
+        "auction_rounds": rounds,
+        "split_ms": split,
+        "split_rounds_per_frame": {
+            "min": frame_rounds[0], "median": frame_rounds[len(
+                frame_rounds) // 2], "max": frame_rounds[-1],
+            "frames": len(frame_rounds), "total": sum(frame_rounds)},
+        "split_ms_per_round": split["scan_auction"] / max(
+            1, sum(frame_rounds)),
+        "split_kernel_vs_plain_max_err": split_errs,
+        "launches": launches, **counts,
+        "mota_random_weights": stats["metrics"].mota,
+        "hota_random_weights": stats["hota"].hota,
+        "agreement": agreement, "strategy_gate": gate, "heads": heads,
+        "gpu": smi}
+    stage(f"quality runner: {result['frames']} frames, {result['windows']} "
+          f"windows of {RUNNER_WINDOW} x S={RUNNER_S}, {stats['fps']:.2f} "
+          f"FPS after the first window, windows {result['window_ms']} ms, "
+          f"{rounds} auction rounds, split {split} ms, rounds per frame "
+          f"{result['split_rounds_per_frame']}, {counts}, {launches} "
+          f"launches, MOTA {result['mota_random_weights']:.4f} HOTA "
+          f"{result['hota_random_weights']:.4f} (random weights), on {smi}")
     return result
 
 
@@ -815,14 +1284,24 @@ def main(argv=None) -> int:
     check_fma(dev)
     reference_check(dev)
     run = main_path(net, dev, smi, profile)
-    runner = runner_phase(net, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = f"{tmp}/kitti"
+        t = time.perf_counter()
+        n_frames = write_kitti_tree(root)
+        n_dets, n_fp = write_noisy_detections(root)
+        stage(f"runner tree: {n_frames} frames of {KITTI_H}x{KITTI_W} and "
+              f"{n_dets} noisy detections ({n_fp} false positives) written "
+              f"in {time.perf_counter() - t:.1f} s")
+        runner = runner_phase(net, dev, smi, root, tmp)
+        quality = quality_phase(net, dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
         return {k: r[k] for k in ("ms", "call_ms", "launch_ms", "plain_ms",
                                   "plain_call_ms", "library_ms",
                                   "library_call_ms", "bound_ms", "bound_by",
-                                  "valid_pairs", "errs")}
+                                  "valid_pairs", "errs", "frame_pairs",
+                                  "slots")}
 
     bf = kern[torch.bfloat16, T]
     entry = {
@@ -831,7 +1310,8 @@ def main(argv=None) -> int:
         "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
         "launches": run["launches"],
         "launches_by_path": {"main_path": run["launches"],
-                             "runner": runner["launches"]},
+                             "runner": runner["launches"],
+                             "quality_runner": quality["launches"]},
         "max_abs_err": max(bf["errs"].values()),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -843,8 +1323,10 @@ def main(argv=None) -> int:
         "library_call_ms": bf["library_call_ms"],
         "launch_ms": bf["launch_ms"], "valid_pairs": bf["valid_pairs"],
         "b512": at(torch.bfloat16, 512),
+        "entry_band": at(torch.bfloat16, "entry"),
         "float32": {"b16": at(torch.float32, T),
-                    "b512": at(torch.float32, 512)},
+                    "b512": at(torch.float32, 512),
+                    "entry_band": at(torch.float32, "entry")},
         "ptxas": ptxas, "sass_tensor_core": sass,
     }
     print(json.dumps({"main_path": {
@@ -853,6 +1335,7 @@ def main(argv=None) -> int:
         "fps": run["fps"], "stages_ms": run["stages_ms"],
         "profiled": run.get("profiled"), "gpu": smi}}))
     print(json.dumps({"runner": runner}))
+    print(json.dumps({"quality": quality}))
     print(json.dumps({"kernels": [entry]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,8 +24,7 @@ from mmmot_tpu_torch.assoc.cost import (NEG, Decisions, build_assignment_cost,
 
 BIG_NEG = -(2 ** 30)        # forbidden / sentinel for int32 scores
 SYNC_EVERY = 64             # bidding rounds between host checks
-SCALING_STEPS = 8           # eps phases (the reference's default, set by
-                            # every config)
+SCALING_STEPS = 8           # eps phases (AssocConfig's default)
 QUANT_BITS = 18             # score grid: 2**18 steps over each cost's span
 
 
@@ -124,7 +123,8 @@ def _complete_matching(cost, assign, owner):
     return assign, owner
 
 
-def auction_lap(cost, max_iters: int = 100000):
+def auction_lap(cost, scaling_steps: int = SCALING_STEPS,
+                max_iters: int = 100000):
     """Max-weight perfect matching for each of S square cost matrices.
 
     cost float [S, M, M] -> (row_to_col int32 [S, M], n_unassigned [S],
@@ -136,7 +136,8 @@ def auction_lap(cost, max_iters: int = 100000):
     S, M, _ = cost.shape
     ci = _quantize(cost)
     start = (2 ** QUANT_BITS) * (M + 1) // 4
-    scale_div = max(2, int(math.ceil(start ** (1.0 / SCALING_STEPS))))
+    scale_div = max(2, int(math.ceil(start ** (1.0 / max(scaling_steps,
+                                                         1)))))
     bid_cap = (2 ** QUANT_BITS) * (M + 1)
     assign, owner, rounds = _auction_all_phases(ci, start, scale_div,
                                                 max_iters, bid_cap)
@@ -151,11 +152,18 @@ auction_lap.rounds = 0
 
 
 def solve_auction(link, new, end, mask_prev, mask_curr,
-                  max_iters: int = 100000) -> Decisions:
+                  scaling_steps: int = SCALING_STEPS,
+                  max_iters: int = 100000, det_prev=None,
+                  det_curr=None) -> Decisions:
     """Scores -> square reduction -> auction -> decisions, for any
-    leading batch shape."""
-    cost = build_assignment_cost(link, new, end, mask_prev, mask_curr)
+    leading batch shape; ``det_prev``/``det_curr`` as in
+    ``build_assignment_cost``."""
+    cost = build_assignment_cost(link, new, end, mask_prev, mask_curr,
+                                 det_prev=det_prev, det_curr=det_curr)
     lead = cost.shape[:-2]
     M = cost.shape[-1]
-    rc, _ = auction_lap(cost.reshape(-1, M, M), max_iters=max_iters)
-    return decode_assignment(rc.reshape(*lead, M), mask_prev, mask_curr)
+    rc, _ = auction_lap(cost.reshape(-1, M, M), scaling_steps=scaling_steps,
+                        max_iters=max_iters)
+    return decode_assignment(rc.reshape(*lead, M), mask_prev, mask_curr,
+                             new=new, end=end, det_prev=det_prev,
+                             det_curr=det_curr)

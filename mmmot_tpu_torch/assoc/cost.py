@@ -6,6 +6,13 @@ For N slots the [2N, 2N] score matrix holds the links (top left), each
 prev det's own death sink (top right diagonal), each curr det's own birth
 source (bottom left diagonal) and a zero filler (bottom right); every
 other entry is the forbidden score ``NEG``.
+
+With detection-confidence scores (the reference ILP's ``y_det``
+variables) the LP may also reject a detection.  That folds into the same
+square problem: a link earns ``link + det_prev[i] + det_curr[j]``, and
+each virtual cell takes the better of its two exclusive arms,
+``max(det + end, 0)`` ("end" against "reject") and ``max(det + new, 0)``;
+decoding recovers the arm from the sign of ``det + end`` / ``det + new``.
 """
 
 from __future__ import annotations
@@ -26,8 +33,13 @@ class Decisions(NamedTuple):
     keep_curr: torch.Tensor         # [.., N] curr j linked or new
 
 
-def build_assignment_cost(link, new, end, mask_prev, mask_curr):
-    """[.., N, N] link, [.., N] new/end -> [.., 2N, 2N] scores (max)."""
+def build_assignment_cost(link, new, end, mask_prev, mask_curr,
+                          det_prev=None, det_curr=None):
+    """[.., N, N] link, [.., N] new/end -> [.., 2N, 2N] scores (max).
+
+    ``det_prev``/``det_curr`` [.., N] are optional per-detection
+    confidence scores (log-odds-like) that let the LP reject detections.
+    """
     N = link.shape[-1]
     dt = link.dtype
     mp, mc = mask_prev.bool(), mask_curr.bool()
@@ -35,6 +47,12 @@ def build_assignment_cost(link, new, end, mask_prev, mask_curr):
     eye = torch.eye(N, dtype=torch.bool, device=link.device)
     neg = torch.tensor(NEG, dtype=dt, device=link.device)
     zero = torch.zeros((), dtype=dt, device=link.device)
+    if det_prev is not None:
+        dp = torch.where(mp, det_prev, zero).to(dt)
+        dc = torch.where(mc, det_curr, zero).to(dt)
+        link = link + dp[..., :, None] + dc[..., None, :]
+        end = torch.maximum(end + dp, zero)
+        new = torch.maximum(new + dc, zero)
     tl = torch.where(pair_ok, link, neg)
     tr = torch.where(eye, torch.where(mp, end, zero)[..., :, None], neg)
     bl = torch.where(eye, torch.where(mc, new, zero)[..., None, :], neg)
@@ -43,8 +61,13 @@ def build_assignment_cost(link, new, end, mask_prev, mask_curr):
                       torch.cat([bl, br], dim=-1)], dim=-2)
 
 
-def decode_assignment(row_to_col, mask_prev, mask_curr) -> Decisions:
-    """A [.., 2N] perfect matching (row -> col) -> Decisions."""
+def decode_assignment(row_to_col, mask_prev, mask_curr, new=None, end=None,
+                      det_prev=None, det_curr=None) -> Decisions:
+    """A [.., 2N] perfect matching (row -> col) -> Decisions.
+
+    With det scores, a det parked on its virtual counterpart is "end" /
+    "new" only when that arm beat the reject arm (``det + end/new >= 0``);
+    otherwise it is rejected (``keep`` False)."""
     N = mask_prev.shape[-1]
     mp, mc = mask_prev.bool(), mask_curr.bool()
     prev_assign = row_to_col[..., :N]
@@ -54,6 +77,9 @@ def decode_assignment(row_to_col, mask_prev, mask_curr) -> Decisions:
     is_end = mp & ~linked_prev
     cols = torch.arange(N, device=row_to_col.device)
     is_new = mc & (birth_assign == cols)
+    if det_prev is not None:
+        is_end = is_end & ((det_prev + end) >= 0.0)
+        is_new = is_new & ((det_curr + new) >= 0.0)
     # Invert match_prev: curr j <- prev i; unlinked rows go to column N.
     lead = match_prev.shape[:-1]
     idx = torch.where(linked_prev, match_prev, N).long().reshape(-1, N)

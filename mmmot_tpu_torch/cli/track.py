@@ -3,13 +3,17 @@
 
     python -m mmmot_tpu_torch.cli.track --config full_mmmot \\
         --data-root data/kitti_tracking --batch-sequences 2
+    python -m mmmot_tpu_torch.cli.track --config full_mmmot_noisy \\
+        --data-root data/kitti_tracking --batch-sequences 2
 
 Tracks the sequences of a KITTI tracking tree in windows
 (``tracker/kitti_runner.py``), writes one KITTI result txt per sequence
 under ``<result-path>/<config>/<result-sha>/`` and, unless ``--no-eval``,
 scores them with the devkit and HOTA (``summary_<cls>.txt``,
 ``hota_<cls>.txt``).  ``--config`` names a preset of
-``mmmot_tpu_torch.config``.  Weights come from ``--weights`` (a flat
+``mmmot_tpu_torch.config``, its association included
+(``full_mmmot_noisy``: the noisy-detector quality stack, reading
+``detections/noisy/``).  Weights come from ``--weights`` (a flat
 ``params/...``, ``batch_stats/...`` numpy archive, see
 ``compat/from_jax.py::save_npz``) or are random from ``--seed``.  The
 GPU is used unless ``--cpu`` is given.
@@ -22,7 +26,8 @@ import dataclasses
 import logging
 import os
 
-PRESETS = ("full_mmmot", "tiny_debug")
+PRESETS = ("full_mmmot", "full_mmmot_ydet", "full_mmmot_noisy",
+           "tiny_debug")
 
 
 def parse_args(argv=None):
@@ -74,7 +79,7 @@ def build_module(cfg, weights, seed: int, device):
         net.load_state_dict(load_flax_variables(load_npz(weights), net))
     else:
         init_random_(net, seed)
-    return TrackingModule(net)
+    return TrackingModule(net, cfg.assoc)
 
 
 def main(argv=None):

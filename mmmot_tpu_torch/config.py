@@ -1,7 +1,7 @@
 """Configuration of the port: frozen dataclasses and Python presets.
 
-Only the knobs the flagship raw-frames path and the KITTI runner read
-are carried.  The
+Only the knobs the flagship raw-frames path, the KITTI runner and the
+association quality stack read are carried.  The
 values that the path supports but does not vary (VGG with batch norm and
 skip pooling, subabs correlation, a 2-layer link head, dual softmax, v2
 new/end heads with max pooling, ``add`` score fusion over the
@@ -9,13 +9,12 @@ fused/image/lidar branches, fusion variant C) are fixed by the modules
 themselves.  The crop size and the points per detection are the
 model's (the JAX ``data`` section repeats them).  Field names and
 defaults follow the JAX package's ``mmmot_tpu/config.py``.  No YAML is parsed:
-``full_mmmot()`` and ``tiny_debug()`` spell out
-``experiments/full_mmmot/config.yaml`` and
-``experiments/tiny_debug/config.yaml``.
+each preset spells out its ``experiments/<name>/config.yaml``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -122,11 +121,84 @@ class DataConfig:
                 f"got {self.cloud_filter!r}")
 
 
+# Solvers of the reference that the port does not have yet (ROADMAP
+# Queue 1, "parts the flagship slice left out").
+UNPORTED_SOLVERS = ("sinkhorn", "greedy", "ilp", "lap", "native")
+
+
+@dataclass(frozen=True)
+class AssocConfig:
+    """The association (``mmmot_tpu/config.py::AssocConfig``), with the
+    fields the port reads, their defaults and the reference's checks.
+
+    - ``use_det_scores``: detection-confidence variables (y_det) in the
+      LP, weighted by ``det_score_weight``, so the solver may reject a
+      detection; ``raw_new_end`` feeds the raw new/end logits to the LP
+      instead of their sigmoids.
+    - ``link_threshold`` > 0 forbids links scoring below it.
+    - ``iou_gate`` > 0 forbids links whose 2D box IoU is below it;
+      ``iou_weight`` != 0 adds ``iou_weight * IoU`` to the link scores.
+    - ``revival_window`` K > 0 keeps unmatched tracks as ghosts for up
+      to K frames; a later detection that matches one revives its id.
+    - ``ghost_coverage`` emits each ghost's constant-velocity box while
+      it is missing, for its first ``coverage_max_miss`` missed frames
+      (0: all K) and while its last det-head confidence is at least
+      ``coverage_min_score``.
+    - ``gate_predict`` gates against each track's predicted box (frozen
+      box + (missed + 1) * last link velocity).
+    - ``class_gate`` (joint classes) is not ported yet: the tracker
+      raises ``NotImplementedError`` for it.
+    """
+
+    solver: str = "auction"
+    auction_scaling_steps: int = 8     # eps-scaling phases
+    link_threshold: float = 0.0
+    use_det_scores: bool = False
+    det_score_weight: float = 1.0
+    raw_new_end: bool = False
+    iou_gate: float = 0.0
+    iou_weight: float = 0.0
+    revival_window: int = 0
+    class_gate: bool = False
+    ghost_coverage: bool = False
+    coverage_max_miss: int = 0
+    coverage_min_score: float = 0.0
+    gate_predict: bool = False
+
+    def __post_init__(self):
+        if self.solver in UNPORTED_SOLVERS:
+            raise NotImplementedError(
+                f"solver {self.solver!r} is not ported to mmmot_tpu_torch "
+                "(ROADMAP Queue 1); use 'auction'")
+        if self.solver != "auction":
+            raise ValueError(f"unknown solver {self.solver!r}")
+        if self.coverage_max_miss < 0:
+            raise ValueError(
+                f"coverage_max_miss must be >= 0, "
+                f"got {self.coverage_max_miss}")
+        if (self.ghost_coverage and self.revival_window
+                and self.coverage_max_miss > self.revival_window):
+            raise ValueError(
+                f"coverage_max_miss={self.coverage_max_miss} exceeds "
+                f"revival_window={self.revival_window}: coverage can only "
+                "be emitted while the ghost is still in the pool")
+        if self.gate_predict:
+            if not self.ghost_coverage:
+                raise ValueError(
+                    "gate_predict needs ghost_coverage (the per-track "
+                    "velocity is carried state)")
+            if self.iou_gate <= 0.0 and self.iou_weight == 0.0:
+                raise ValueError(
+                    "gate_predict without iou_gate/iou_weight does "
+                    "nothing: configure the spatial gate it predicts for")
+
+
 @dataclass(frozen=True)
 class Config:
     name: str = "default"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    assoc: AssocConfig = field(default_factory=AssocConfig)
 
 
 def full_mmmot() -> Config:
@@ -160,3 +232,26 @@ def tiny_debug() -> Config:
             new_end=NewEndConfig(hidden_dim=32),
             compute_dtype="float32"),
         data=DataConfig(max_dets=8, crop_size=(32, 32), point_len=16))
+
+
+def full_mmmot_ydet() -> Config:
+    """``experiments/full_mmmot_ydet/config.yaml``: the flagship with
+    y_det detection rejection in the LP, on raw new/end logits."""
+    return dataclasses.replace(
+        full_mmmot(), name="full_mmmot_ydet",
+        assoc=AssocConfig(solver="auction", use_det_scores=True,
+                          raw_new_end=True))
+
+
+def full_mmmot_noisy() -> Config:
+    """``experiments/full_mmmot_noisy/config.yaml``: the noisy-detector
+    quality stack (y_det, a 4-frame ghost pool, the IoU gate and prior,
+    ghost coverage for the first missed frame) on noisy detections."""
+    base = full_mmmot()
+    return dataclasses.replace(
+        base, name="full_mmmot_noisy",
+        data=dataclasses.replace(base.data, det_source="noisy"),
+        assoc=AssocConfig(solver="auction", use_det_scores=True,
+                          raw_new_end=True, revival_window=4, iou_gate=0.1,
+                          iou_weight=1.0, ghost_coverage=True,
+                          coverage_max_miss=1))

@@ -13,10 +13,16 @@ one auction per window for the whole group; with S=1 it is
 reads the next group (PNG decode, cloud read) while the device tracks the
 current one.
 
+With ghost coverage (``assoc.ghost_coverage``), each window also returns
+the coverage rows of the tracks missing at each frame; they are written
+into the result files beside the detections, under their track's id and
+scored by its last det-head confidence, and filtered by that score in
+the ``thr_<t>/`` sweep (as the reference does, ``score_threshold``
+filters only the detections).
+
 Not ported, and raising ``NotImplementedError``: ``dead_sensor``,
 ``track_class="All"`` (joint classes with the class gate),
-``point_source="box3d"`` and ``packed_cache``; the port's module has no
-ghost coverage or class gate to run.
+``point_source="box3d"`` and ``packed_cache``.
 """
 
 from __future__ import annotations
@@ -109,7 +115,9 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
     ``frames_loaded``.
 
     ``outputs`` maps each sequence to its tracker output: ids [T, N],
-    det_score [T, N] and the det_mask [T, N] it was run on.
+    det_score [T, N] and the det_mask [T, N] it was run on, and with
+    ghost coverage ghost_ids [T, N], ghost_boxes [T, N, 4] and
+    ghost_scores [T, N].
 
     ``score_sweep`` writes the result txts again under
     ``res_dir/thr_<t>/`` for each det-head score threshold t, from the
@@ -137,8 +145,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
 
     def run_group(members: List[str], arrs_l):
         """Track a group of sequences window by window; returns
-        ([(seq, arrs, ids [T', N], det_score [T', N])], frames counted,
-        seconds counted)."""
+        ([(seq, arrs, {"ids" [T', N], "det_score" [T', N] and the ghost
+        outputs})], frames counted, seconds counted)."""
         nonlocal n_dropped
         plans = [_seq_plan(a, window) for a in arrs_l]
         S_b, W = len(members), window
@@ -153,9 +161,15 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
         proj = torch.as_tensor(np.stack([a.proj for a in arrs_l]),
                                device=dev)
         state = stack_states([module.init_state(N) for _ in members])
-        ids = [np.full((n_windows * W, N), -1, np.int32) for _ in members]
-        det_score = [np.zeros((n_windows * W, N), np.float32)
-                     for _ in members]
+        # Per output: its fill value and trailing shape (ghost outputs
+        # have the N ghost slots of the 2N-slot state).
+        fields = {"ids": (-1, ()), "det_score": (0.0, ())}
+        if module.ghost_coverage:
+            fields.update(ghost_ids=(-1, ()), ghost_boxes=(0.0, (4,)),
+                          ghost_scores=(0.0, ()))
+        res = [{k: np.full((n_windows * W, N) + tail, fill,
+                           np.int32 if fill == -1 else np.float32)
+                for k, (fill, tail) in fields.items()} for _ in members]
         frames_ctd, secs_ctd = 0, 0.0
         for w in range(n_windows):
             t0 = time.perf_counter()
@@ -170,8 +184,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                 module, im, cl, bx, dm, proj, crop, P, cloud_valid=cv,
                 compact_capacity=capacity, extract_chunk=chunk,
                 crop_window=crop_window, state0=state, return_state=True)
-            o_ids = out["ids"].cpu().numpy()
-            o_ds = out["det_score"].float().cpu().numpy()
+            o = {k: out[k].float().cpu().numpy() if fill == 0.0
+                 else out[k].cpu().numpy() for k, (fill, _) in fields.items()}
             n_dropped += int(out["n_dropped"].sum())
             dt = time.perf_counter() - t0
             window_s.append(dt)
@@ -181,13 +195,12 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                 secs_ctd += dt
             for j, a in enumerate(arrs_l):
                 n = min(W, max(0, a.det_mask.shape[0] - w * W))
-                ids[j][w * W:w * W + n] = o_ids[j][:n]
-                det_score[j][w * W:w * W + n] = o_ds[j][:n]
+                for k in fields:
+                    res[j][k][w * W:w * W + n] = o[k][j][:n]
         if log:
             log.info("group %s: %d windows in %.2fs", ",".join(members),
                      n_windows, secs_ctd)
-        return (list(zip(members, arrs_l, ids, det_score)), frames_ctd,
-                secs_ctd)
+        return list(zip(members, arrs_l, res)), frames_ctd, secs_ctd
 
     cls = data_cfg.track_class.lower()
     ev, hev = TrackingEvaluation(cls=cls), HotaEvaluation(cls=cls)
@@ -219,19 +232,32 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
             results, frames_ctd, secs_ctd = run_group(members, arrs_l)
             total_frames += frames_ctd
             t_total += secs_ctd
-            for seq, arrs, ids, det_score in results:
+            for seq, arrs, res in results:
                 T = arrs.det_mask.shape[0]
-                outputs[seq] = {"ids": ids[:T], "det_score": det_score[:T],
-                                "det_mask": arrs.det_mask}
+                res = {k: v[:T] for k, v in res.items()}
+                outputs[seq] = dict(res, det_mask=arrs.det_mask)
+                ids, det_score = res["ids"], res["det_score"]
                 keep = arrs.det_mask
                 if score_threshold > 0:
-                    keep = keep & (det_score[:T] >= score_threshold)
+                    keep = keep & (det_score >= score_threshold)
                 objs = tracker_output_to_objects(
-                    ids[:T], keep, arrs.boxes, scores=arrs.scores,
+                    ids, keep, arrs.boxes, scores=arrs.scores,
                     boxes3d=arrs.boxes3d, obj_type=data_cfg.track_class,
                     frame_ids=arrs.frame_ids, has_3d=arrs.has_3d)
+                ghost_objs = []
+                if "ghost_ids" in res:
+                    # Coverage rows: a track missing for at most
+                    # coverage_max_miss frames keeps its extrapolated box
+                    # under its own id, scored by its last det-head
+                    # confidence.
+                    gi = res["ghost_ids"]
+                    ghost_objs = tracker_output_to_objects(
+                        gi, gi >= 0, res["ghost_boxes"],
+                        scores=res["ghost_scores"],
+                        obj_type=data_cfg.track_class,
+                        frame_ids=arrs.frame_ids)
                 path = os.path.join(res_dir, f"{seq}.txt")
-                write_kitti_result(objs, path)
+                write_kitti_result(objs + ghost_objs, path)
                 if log:
                     log.info("sequence %s: %d frames -> %s", seq, T, path)
                 gt_path = os.path.join(data_cfg.root, "label_02",
@@ -246,11 +272,11 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                     os.makedirs(tdir, exist_ok=True)
                     tpath = os.path.join(tdir, f"{seq}.txt")
                     write_kitti_result(tracker_output_to_objects(
-                        ids[:T], keep & (det_score[:T] >= thr), arrs.boxes,
+                        ids, keep & (det_score >= thr), arrs.boxes,
                         scores=arrs.scores, boxes3d=arrs.boxes3d,
                         obj_type=data_cfg.track_class,
-                        frame_ids=arrs.frame_ids, has_3d=arrs.has_3d),
-                        tpath)
+                        frame_ids=arrs.frame_ids, has_3d=arrs.has_3d)
+                        + [g for g in ghost_objs if g.score >= thr], tpath)
                     if gt is not None:
                         sweep_evs[thr].add_sequence(
                             gt, read_kitti_tracking_labels(tpath),

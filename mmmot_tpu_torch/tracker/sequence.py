@@ -1,6 +1,7 @@
 """Whole-sequence tracking from raw frames: port of the compact-first
 branch of ``mmmot_tpu/tracker/sequence.py::track_sequence_from_frames``
-with the parallel association pre-solve (``_parallel_track``), and of
+with its execution strategies (``_scan_track``: ``_parallel_track``,
+``_hybrid_track``, ``_revival_track`` and the sequential scan), and of
 ``track_sequences_from_frames_batched`` (the S axis).
 
 1. The valid (frame, slot) pairs of each sequence are compacted up front,
@@ -9,10 +10,12 @@ with the parallel association pre-solve (``_parallel_track``), and of
    band of its frame, resize and normalise it, sample its frustum points,
    and extract features.
 3. The features are scattered back to [S, T, N] slots.
-4. All S*T frame-pair affinities run as one batched call (the fused
-   kernel on the GPU), then one batched auction.
-5. IDs propagate frame by frame in a Python loop over T on the device
-   (the reference's ``lax.scan``), vectorised over S.
+4. The association (``_scan_track``).  The flagship's parallel pre-solve
+   runs all S*T frame-pair affinities as one batched call (the fused
+   kernel on the GPU), then one batched auction, then propagates the IDs
+   frame by frame.  The quality stack's hybrid pre-solves run the raw
+   link scores as one or two batched calls, then a loop over the frames
+   with one batched auction over the S sequences per frame.
 
 The reference vmaps the one-sequence function over S; here S is a batch
 dimension of every tensor, which gives the same ids.  A window of a
@@ -22,19 +25,25 @@ returned (``state0``/``return_state``).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from mmmot_tpu_torch.assoc.solve import associate
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.models.layers import sigmoid
+from mmmot_tpu_torch.models.tracking_net import BRANCHES
 from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_gathered,
                                              normalize_crops)
 from mmmot_tpu_torch.ops.frustum import frustum_sample
-from mmmot_tpu_torch.ops.masking import compact_indices, scatter_compact
-from mmmot_tpu_torch.tracker.tracker import (TrackerState, TrackingModule,
-                                             stack_states)
+from mmmot_tpu_torch.ops.masking import (compact_indices, pair_mask,
+                                         scatter_compact)
+from mmmot_tpu_torch.tracker.tracker import (
+    F32_FEATS, TrackerState, TrackingModule, apply_spatial_gate,
+    coverage_score, gather_slots, inherit_ids, link_velocity, matched_ages,
+    predicted_boxes, select_ghosts, stack_states)
 
 
 def _chunked(fn, args, capacity: int, chunk: Optional[int]):
@@ -72,18 +81,95 @@ def propagate_ids(match_curr, is_new, det_mask, state0: TrackerState):
     for t in range(det_mask.shape[-2]):
         match, new, dm = (x[..., t, :] for x in (match_curr, is_new,
                                                  det_mask))
-        linked = match >= 0
-        safe = match.clamp_min(0).long()
-        inherited = torch.where(linked, torch.gather(ids_prev, -1, safe), -1)
-        order = torch.cumsum(new.to(torch.int32), -1) - 1
-        ids = torch.where(new, next_id[..., None] + order, inherited)
-        ids = torch.where(dm, ids, -1).to(torch.int32)
-        age = torch.where(linked, torch.gather(ages_prev, -1, safe), 0)
-        ages_prev = torch.where(dm, age + 1, 0).to(torch.int32)
-        next_id = next_id + new.to(torch.int32).sum(-1)
-        ids_all.append(ids)
-        ids_prev = ids
+        ids_prev, next_id = inherit_ids(ids_prev, next_id, match, new, dm)
+        ages_prev = matched_ages(ages_prev, match, dm)
+        ids_all.append(ids_prev)
     return torch.stack(ids_all, dim=-2), ages_prev, next_id
+
+
+def det_logits(module: TrackingModule, feats, det_mask):
+    """Det-head logits [S, T, N] of a window: carried in ``feats
+    ["detlogit"]`` when the module carries them, else computed."""
+    if "detlogit" in feats:
+        return feats["detlogit"][..., 0]
+    return module.det_score(feats["fused"], det_mask)
+
+
+def _scan_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
+                det_mask, state0: Optional[TrackerState] = None):
+    """Association and ID bookkeeping over the frames of a window.
+
+    feats {k: [S, T, N, D]}, det_mask [S, T, N] bool, ``state0`` the
+    state the previous window returned (default: empty).  Returns
+    (outputs, final state).  The execution strategies give the same ids
+    (tested), as the reference's do:
+
+    * the parallel pre-solve (``module.parallel_assoc``, the flagship):
+      every frame pair's affinity in one fused-kernel call and one
+      batched auction, then the ID propagation;
+    * the y_det hybrid pre-solve (``use_det_scores``) and the revival
+      hybrid pre-solve (``revival_window`` > 0), with
+      ``hybrid_presolve``: the raw link scores of every pair the scan can
+      need in one or two batched fused-kernel calls with optimistic
+      masks, then a loop over the frames for the mask-dependent rest;
+    * the sequential scan: ``step_from_feats`` frame by frame, the
+      equality oracle of the two above.
+
+    The frames are a Python loop vectorised over S: each frame's LP is
+    one batched auction over the S sequences.
+    """
+    S, T, N = det_mask.shape
+    if ((module.carry_det_logits and "detlogit" not in feats)
+            or (module.ghost_coverage and "detsc" not in feats)):
+        # One batched det-head call for the whole window, so that every
+        # strategy reads (and freezes into ghosts) the same logits and
+        # coverage scores.
+        dl = det_logits(module, feats, det_mask)
+        if module.carry_det_logits:
+            feats = dict(feats, detlogit=dl[..., None])
+        if module.ghost_coverage:
+            feats = dict(feats, detsc=coverage_score(dl))
+    if state0 is None:
+        # The registry of what this window carries (2N slots and the
+        # missed counters with revival).
+        dims = {k: v.shape[-1] for k, v in feats.items()}
+        if module.ghost_coverage:
+            dims["boxvel"] = 4
+        state0 = stack_states([module.make_state0(dims, N)
+                               for _ in range(S)])
+    cdt = feats["fused"].dtype
+    state0 = dataclasses.replace(state0, feats={
+        k: v if k in F32_FEATS else v.to(cdt)
+        for k, v in state0.feats.items()})
+    with torch.inference_mode():
+        if module.parallel_assoc:
+            return _parallel_track(module, feats, det_mask, state0)
+        if module.hybrid_presolve and module.assoc_cfg.revival_window:
+            return _revival_track(module, feats, det_mask, state0)
+        if module.hybrid_presolve and module.assoc_cfg.use_det_scores:
+            return _hybrid_track(module, feats, det_mask, state0)
+        return _sequential_track(module, feats, det_mask, state0)
+
+
+def _stack_outputs(outs, keys):
+    return {k: torch.stack([o[k] for o in outs], dim=1) for k in keys}
+
+
+def _output_keys(module: TrackingModule):
+    keys = ("ids", "det_score")
+    if module.ghost_coverage:
+        keys += ("ghost_ids", "ghost_boxes", "ghost_scores")
+    return keys
+
+
+def _sequential_track(module: TrackingModule, feats, det_mask, state0):
+    """``step_from_feats`` frame by frame."""
+    state, outs = state0, []
+    for t in range(det_mask.shape[1]):
+        state, out = module.step_from_feats(
+            state, {k: v[:, t] for k, v in feats.items()}, det_mask[:, t])
+        outs.append(out)
+    return _stack_outputs(outs, _output_keys(module)), state
 
 
 def _parallel_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
@@ -93,6 +179,7 @@ def _parallel_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
     ID propagation.  Returns (outputs, final state)."""
     prev_feats, mask_prev = pair_inputs(feats, det_mask, state0)
     lead, N = det_mask.shape[:-1], det_mask.shape[-1]
+    cfg = module.assoc_cfg
 
     def flat(x):
         return x.reshape((-1,) + x.shape[len(lead):])
@@ -101,8 +188,14 @@ def _parallel_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
                           {k: flat(v) for k, v in feats.items()},
                           flat(mask_prev), flat(det_mask))
     with torch.inference_mode():
-        dec = associate(aff.link_norm, sigmoid(aff.new), sigmoid(aff.end),
-                        flat(mask_prev), flat(det_mask))
+        link = aff.link_norm
+        if module.spatial_gating:
+            link = apply_spatial_gate(link, flat(prev_feats["box"]),
+                                      flat(feats["box"]), cfg)
+        new, end = aff.new, aff.end
+        if not cfg.raw_new_end:
+            new, end = sigmoid(new), sigmoid(end)
+        dec = associate(link, new, end, flat(mask_prev), flat(det_mask), cfg)
         det_score = sigmoid(module.det_score(feats["fused"], det_mask))
         ids, ages, next_id = propagate_ids(
             dec.match_curr.reshape(lead + (N,)),
@@ -111,6 +204,213 @@ def _parallel_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
                          mask=det_mask[..., -1, :], ids=ids[..., -1, :],
                          ages=ages, next_id=next_id)
     return {"ids": ids, "det_score": det_score}, final
+
+
+def _hybrid_track(module: TrackingModule, feats, det_mask, state0):
+    """The y_det hybrid pre-solve (reference ``_hybrid_track``).
+
+    LP rejection makes the carried state depend on the decisions, but
+    only through its MASK: the previous side's features are the previous
+    frame's whatever was rejected.  So the raw link scores of all S*T
+    pairs run as one fused-kernel call with optimistic masks (every
+    valid detection); the loop re-masks each frame's scores with the
+    carried mask and keeps the normalisation, the gate, the new/end
+    heads, the LP and the ids.  Exact, because rejections only shrink
+    the mask and the raw link is exactly 0 at invalid pairs.
+    """
+    S, T, N = det_mask.shape
+    prev_feats, mask_prev_opt = pair_inputs(feats, det_mask, state0)
+    link_all = module.affinity_link(
+        {k: v.flatten(0, 1) for k, v in prev_feats.items()},
+        {k: v.flatten(0, 1) for k, v in feats.items()},
+        mask_prev_opt.flatten(0, 1), det_mask.flatten(0, 1)
+    ).reshape(S, T, N, N)
+    dl_all = det_logits(module, feats, det_mask)
+    dl_prev = prev_feats["detlogit"][..., 0]
+    box_prev, box_curr = prev_feats.get("box"), feats.get("box")
+    mask, ids, ages, next_id = (state0.mask, state0.ids, state0.ages,
+                                state0.next_id)
+    all_ids = []
+    for t in range(T):
+        dm = det_mask[:, t]
+        link = link_all[:, t] * pair_mask(mask, dm).to(link_all.dtype)
+        dec = module.frame_decisions(
+            link, prev_feats["fused"][:, t], feats["fused"][:, t], mask,
+            dm, dl_prev[:, t], dl_all[:, t],
+            None if box_prev is None else box_prev[:, t],
+            None if box_curr is None else box_curr[:, t])
+        mask = dm & dec.keep_curr
+        ages = matched_ages(ages, dec.match_curr, mask)
+        ids, next_id = inherit_ids(ids, next_id, dec.match_curr, dec.is_new,
+                                   dm)
+        all_ids.append(ids)
+    final = TrackerState(feats={k: v[:, -1] for k, v in feats.items()},
+                         mask=mask, ids=ids, ages=ages, next_id=next_id)
+    return {"ids": torch.stack(all_ids, 1), "det_score": sigmoid(dl_all)}, \
+        final
+
+
+def _revival_track(module: TrackingModule, feats, det_mask, state0):
+    """The ghost-pool hybrid pre-solve (reference ``_revival_track``).
+
+    Which tracks survive as ghosts depends on the decisions, but every
+    ghost's features are a frozen copy of an earlier detection's.  A slot
+    matchable at frame t has missed m <= K frames, so its source frame is
+    t-1-m in [t-K-1, t-1]: every link score the scan can need is one of
+
+        band[d][t] = link(feats[t-d], feats[t]),   d = 1..K+1
+        entry[t]   = link(state0.feats, feats[t]), t < min(K+1, T)
+
+    (the entry band holds the slots carried in from the previous
+    window, live and ghost).  Raw link scores are exactly 0 at invalid
+    pairs and the masks only shrink, so the K+1 bands run as ONE
+    fused-kernel call of S*(K+1)*T frame pairs at N slots and the entry
+    band as a second call of S*min(K+1, T) pairs at M = 2N slots.  The
+    loop carries each slot's PROVENANCE (an index into the window's
+    detections, then the M state0 slots) and gathers link rows, features,
+    det logits and boxes by it.
+    """
+    cfg = module.assoc_cfg
+    K = cfg.revival_window
+    S, T, N = det_mask.shape
+    M = state0.mask.shape[-1]
+    G, Dd = M - N, K + 1
+    cdt = feats["fused"].dtype
+    dev = det_mask.device
+    coverage = module.ghost_coverage
+
+    # ---- batched link scores (optimistic masks) --------------------------
+    D_run = min(Dd, T - 1)              # bands d >= T pair no frame
+    bands = torch.zeros((S, T, Dd, N, N), dtype=cdt, device=dev)
+    if D_run > 0:
+        def shifted(x, d):
+            return F.pad(x[:, :T - d], (0, 0) * (x.dim() - 2) + (d, 0))
+
+        branch = {k: feats[k] for k in BRANCHES}
+        fp = {k: torch.stack([shifted(v, d) for d in range(1, D_run + 1)],
+                             1).flatten(0, 2) for k, v in branch.items()}
+        fc = {k: v[:, None].expand((S, D_run) + v.shape[1:]).flatten(0, 2)
+              for k, v in branch.items()}
+        mp = torch.stack([shifted(det_mask, d) for d in range(1, D_run + 1)],
+                         1).flatten(0, 2)
+        mc = det_mask[:, None].expand(S, D_run, T, N).flatten(0, 2)
+        bands[:, :, :D_run] = module.affinity_link(fp, fc, mp, mc).reshape(
+            S, D_run, T, N, N).transpose(1, 2)
+    E = min(Dd, T)
+    f0 = {k: state0.feats[k][:, None].expand((S, E) + state0.feats[k].shape[1:])
+          .flatten(0, 1) for k in BRANCHES}
+    fcE = {k: F.pad(feats[k][:, :E], (0, 0, 0, G)).flatten(0, 1)
+           for k in BRANCHES}
+    entry = module.affinity_link(
+        f0, fcE, state0.mask[:, None].expand(S, E, M).flatten(0, 1),
+        F.pad(det_mask[:, :E], (0, G)).flatten(0, 1)
+    ).reshape(S, E, M, M)[..., :N]
+    entry_full = torch.zeros((S, T, M, N), dtype=cdt, device=dev)
+    entry_full[:, :E] = entry
+    bank = torch.cat([bands.reshape(S, T, Dd * N, N), entry_full], 2)
+
+    # ---- flat per-slot banks: the window's T*N slots, then state0's M ---
+    def flat(x_win, x0):
+        return torch.cat([x_win.flatten(1, 2), x0.to(x_win.dtype)], 1)
+
+    dl_all = det_logits(module, feats, det_mask)
+    banks = {"fused": flat(feats["fused"], state0.feats["fused"])}
+    if cfg.use_det_scores:
+        banks["detlogit"] = flat(dl_all, state0.feats["detlogit"][..., 0])
+    if module.carry_boxes:
+        banks["box"] = flat(feats["box"], state0.feats["box"])
+    if coverage:
+        banks["score"] = flat(feats["detsc"], state0.feats["detsc"])[..., 0]
+
+    pool = {"mask": state0.mask, "ids": state0.ids, "ages": state0.ages,
+            "next_id": state0.next_id, "missed": state0.missed,
+            "src": (T * N + torch.arange(M, device=dev)).expand(S, M)}
+    if coverage:
+        pool["vel"] = state0.feats["boxvel"].float()
+    outs = []
+    R = bank.shape[2]
+    for t in range(T):
+        src = pool["src"]
+        in_win = src < T * N
+        d = t - torch.div(src, N, rounding_mode="floor")
+        row = torch.where(in_win, (d - 1) * N + src % N, Dd * N + src - T * N)
+        link = gather_slots(bank[:, t], row.clamp(0, R - 1))
+        dm = F.pad(det_mask[:, t], (0, G))
+        link = F.pad(link, (0, G)) * pair_mask(pool["mask"], dm).to(cdt)
+        box_c = None
+        gate_prev = None
+        if module.carry_boxes:
+            box_c = F.pad(feats["box"][:, t], (0, 0, 0, G))
+            gate_prev = gather_slots(banks["box"], src)
+            if cfg.gate_predict:
+                gate_prev = predicted_boxes(gate_prev, pool["missed"] + 1,
+                                            pool["vel"])
+        dlp = dlc = None
+        if cfg.use_det_scores:
+            dlp = gather_slots(banks["detlogit"], src)
+            dlc = F.pad(dl_all[:, t], (0, G))
+        dec = module.frame_decisions(
+            link, gather_slots(banks["fused"], src),
+            F.pad(feats["fused"][:, t], (0, 0, 0, G)), pool["mask"], dm,
+            dlp, dlc, gate_prev, box_c)
+        pool, out = advance_pool(pool, dec, dm, box_c, banks, t, N, K, cfg,
+                                 coverage)
+        outs.append(out)
+    out = _stack_outputs(outs, [k for k in _output_keys(module)
+                                if k != "det_score"])
+    out["det_score"] = sigmoid(dl_all)
+    src = pool["src"]
+    final_feats = {k: gather_slots(flat(v, state0.feats[k]), src)
+                   for k, v in feats.items()}
+    if coverage:
+        final_feats["boxvel"] = pool["vel"]
+    final = TrackerState(feats=final_feats, mask=pool["mask"],
+                         ids=pool["ids"], ages=pool["ages"],
+                         next_id=pool["next_id"], missed=pool["missed"])
+    return out, final
+
+
+def advance_pool(pool, dec, det_mask, box_curr, banks, t: int, N: int,
+                 K: int, cfg, coverage: bool):
+    """The revival hybrid's bookkeeping for frame t (the reference's
+    ``_revival_state`` over provenance): ids and ages of this frame's
+    detections, then the ghost pool, freshest first; with coverage, each
+    track's last link velocity and this frame's coverage rows.  Returns
+    (next pool, {"ids" [S, N], and with coverage "ghost_*"})."""
+    mask, ids, ages, missed, src = (pool[k] for k in ("mask", "ids",
+                                                      "ages", "missed",
+                                                      "src"))
+    kept = det_mask & dec.keep_curr if cfg.use_det_scores else det_mask
+    ids_c, next_id = inherit_ids(ids, pool["next_id"], dec.match_curr,
+                                 dec.is_new, det_mask)
+    ages_c = matched_ages(ages, dec.match_curr, kept)
+    survive = mask & (dec.match_prev < 0) & (missed + 1 <= K)
+    gidx, gtaken = select_ghosts(survive, missed, K, mask.shape[-1] - N)
+    ids_g = torch.where(gtaken, gather_slots(ids, gidx), -1).to(torch.int32)
+    missed_g = torch.where(gtaken, gather_slots(missed, gidx) + 1,
+                           0).to(torch.int32)
+    src_g = gather_slots(src, gidx)
+    nxt = {"mask": torch.cat([kept[:, :N], gtaken], 1),
+           "ids": torch.cat([ids_c[:, :N], ids_g], 1),
+           "ages": torch.cat([ages_c[:, :N], gather_slots(ages, gidx)], 1),
+           "next_id": next_id,
+           "missed": torch.cat([torch.zeros_like(missed_g), missed_g], 1),
+           "src": torch.cat([(t * N + torch.arange(N, device=src.device))
+                             .expand(src.shape[0], N), src_g], 1)}
+    out = {"ids": ids_c[:, :N]}
+    if coverage:
+        vel_c = link_velocity(box_curr, gather_slots(banks["box"], src),
+                              dec.match_curr)
+        vel_g = gather_slots(pool["vel"], gidx)
+        nxt["vel"] = torch.cat([vel_c[:, :N], vel_g], 1)
+        gsc = gather_slots(banks["score"], src_g)
+        emit = gtaken & (missed_g <= (cfg.coverage_max_miss or K)) \
+            & (gsc >= cfg.coverage_min_score)
+        out["ghost_ids"] = torch.where(emit, ids_g, -1).to(torch.int32)
+        out["ghost_boxes"] = predicted_boxes(
+            gather_slots(banks["box"], src_g), missed_g, vel_g)
+        out["ghost_scores"] = torch.where(emit, gsc, 0.0)
+    return nxt, out
 
 
 def _require_capacity(compact_capacity: Optional[int]) -> int:
@@ -131,7 +431,8 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
 
     Arguments as for :func:`track_sequences_from_frames_batched`, as
     tensors on ``module``'s device.  Returns (feats {branch: [S, T, N,
-    D]}, kept [S, T, N] bool: the valid slots that fit in the capacity).
+    D]}, and ``"box"`` [S, T, N, 4] f32 when ``module.carry_boxes``;
+    kept [S, T, N] bool: the valid slots that fit in the capacity).
     """
     det_mask = det_mask.bool()
     boxes, proj = boxes.float(), proj.float()
@@ -169,6 +470,8 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                  .reshape(S, T, N, -1) for k, v in feats_c.items()}
         kept = torch.zeros(S * T * N, dtype=torch.bool, device=dev)
         kept[slot] = taken
+    if module.carry_boxes:
+        feats["box"] = boxes
     return feats, kept.reshape(S, T, N)
 
 
@@ -202,8 +505,10 @@ def track_sequences_from_frames_batched(
     raises); valid detections past it are dropped and counted in
     ``n_dropped``.  ``state0`` is a state with a leading [S] axis (default:
     empty).  Returns {"ids": [S, T, N] int32 (-1 at empty slots),
-    "det_score": [S, T, N], "n_dropped": [S]}, and the final state too
-    with ``return_state``.
+    "det_score": [S, T, N], "n_dropped": [S]} and, with ghost coverage,
+    "ghost_ids" [S, T, N] (-1 where no row), "ghost_boxes" [S, T, N, 4]
+    and "ghost_scores" [S, T, N]; the final state too with
+    ``return_state``.
     """
     _require_capacity(compact_capacity)
     dev = module.device
@@ -218,9 +523,7 @@ def track_sequences_from_frames_batched(
         module, images, clouds, boxes, det_mask, proj, crop_size,
         points_per_det, compact_capacity, extract_chunk, crop_window,
         cloud_valid)
-    if state0 is None:
-        state0 = stack_states([module.init_state(N) for _ in range(S)])
-    out, final = _parallel_track(module, feats, kept, state0)
+    out, final = _scan_track(module, feats, kept, state0)
     out["n_dropped"] = (det_mask.sum((1, 2)) - kept.sum((1, 2))).to(
         torch.int32)
     return (out, final) if return_state else out
@@ -244,8 +547,9 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
     past it are dropped and counted in ``n_dropped``.  ``state0`` continues
     a longer sequence from the state an earlier window returned.  Returns
     {"ids": [T, N] int32 (-1 at empty slots), "det_score": [T, N],
-    "n_dropped": 0-dim int}, and the final state too with
-    ``return_state``.
+    "n_dropped": 0-dim int} (and the ghost outputs of
+    :func:`track_sequences_from_frames_batched` without their S axis),
+    and the final state too with ``return_state``.
     """
     dev = module.device
 
@@ -265,4 +569,5 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
         return out
     return out, TrackerState(
         feats={k: v[0] for k, v in final.feats.items()}, mask=final.mask[0],
-        ids=final.ids[0], ages=final.ages[0], next_id=final.next_id[0])
+        ids=final.ids[0], ages=final.ages[0], next_id=final.next_id[0],
+        missed=None if final.missed is None else final.missed[0])

@@ -19,7 +19,7 @@ from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
 from mmmot_tpu_torch.models.tracking_net import BRANCHES
 
 from tests.torch_port_fixtures import (assert_close, init_flax, port_net,
-                                       tiny_cfg_jax)
+                                       tiny_cfg_jax, torch_one_thread)  # noqa: F401
 
 D = 64
 

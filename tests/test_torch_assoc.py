@@ -17,6 +17,8 @@ from mmmot_tpu_torch.assoc.auction import auction_lap, solve_auction
 from mmmot_tpu_torch.assoc.cost import build_assignment_cost
 from mmmot_tpu_torch.assoc.solve import associate
 
+from tests.torch_port_fixtures import torch_one_thread  # noqa: F401
+
 
 def make_instances(kind, N, batch=6, seed=0):
     """assoc_stress_runner.make_instances, at test size."""
@@ -102,3 +104,57 @@ def test_iteration_cap_completes_matching():
         assert sorted(rc[s].tolist()) == list(range(16))
         ref = j_auction_lap(jnp.asarray(cost[s].numpy()), max_iters=3)
         np.testing.assert_array_equal(rc[s].numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("N,dtype", [(32, "float32"), (64, "float32"),
+                                     (32, "bfloat16")])
+def test_ydet_decisions_equal_reference(N, dtype):
+    """Detection-confidence scores (y_det) through ``solve_auction`` on
+    random instances with holed masks: every decision, the rejections
+    (``keep_*`` False at a valid slot) included, equals the reference's."""
+    from mmmot_tpu.assoc import associate as j_associate
+    from mmmot_tpu.config import AssocConfig as JAssocConfig
+
+    link, new, end, _, _ = make_instances("rand", N, seed=11)
+    rng = np.random.default_rng(N)
+    mp = rng.random((6, N)) < 0.6
+    mc = rng.random((6, N)) < 0.6
+    # Raw new/end logits and det logits of mixed sign, so that end/new,
+    # links and the reject arm all win somewhere.
+    new, end = 2.0 * new - 0.5, 2.0 * end - 0.5
+    dp = rng.normal(0.0, 1.0, (6, N)).astype(np.float32)
+    dc = rng.normal(0.0, 1.0, (6, N)).astype(np.float32)
+    args = (link, new, end, mp, mc, dp, dc)
+    jd = [jnp.asarray(x, dtype) if x.dtype == np.float32 else jnp.asarray(x)
+          for x in args]
+    ref = jax.jit(lambda l, n, e, p, c, a, b: j_associate(
+        l, n, e, p, c, JAssocConfig(solver="auction", use_det_scores=True),
+        det_prev=a, det_curr=b))(*jd)
+    td = [torch.from_numpy(x).to(getattr(torch, dtype))
+          if x.dtype == np.float32 else torch.from_numpy(x) for x in args]
+    got = solve_auction(*td[:5], det_prev=td[5], det_curr=td[6])
+    check_same(got, ref)
+    assert (mp & ~got.keep_prev.numpy()).any()
+    assert (mc & ~got.keep_curr.numpy()).any()
+    assert got.is_new.any() and got.is_end.any()
+    assert (got.match_prev >= 0).any()
+
+
+def test_link_threshold_equals_reference():
+    """``link_threshold`` forbids weak links through ``associate``."""
+    from mmmot_tpu.assoc import associate as j_associate
+    from mmmot_tpu.config import AssocConfig as JAssocConfig
+    from mmmot_tpu_torch.config import AssocConfig
+
+    link, new, end, mp, mc = make_instances("rand", 16, seed=5)
+    ref = j_associate(*map(jnp.asarray, (link, new, end, mp, mc)),
+                      JAssocConfig(solver="auction", link_threshold=0.5))
+    got = associate(*map(torch.from_numpy, (link, new, end, mp, mc)),
+                    AssocConfig(link_threshold=0.5))
+    check_same(got, ref)
+    linked = got.match_prev.numpy()
+    rows, = np.nonzero((linked >= 0).any(1))
+    assert rows.size
+    for b in rows:
+        for i in np.flatnonzero(linked[b] >= 0):
+            assert link[b, i, linked[b, i]] >= 0.5

@@ -69,3 +69,29 @@ def test_track_cli_help_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--batch-sequences" in proc.stdout and "--weights" in proc.stdout
+
+
+CLI_NOISY = GUARD + r"""
+import runpy
+sys.argv = ["track", "--config", "full_mmmot_noisy", "--help"]
+try:
+    runpy.run_module("mmmot_tpu_torch.cli.track", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from mmmot_tpu_torch import config
+from mmmot_tpu_torch.cli.track import PRESETS
+cfg = config.full_mmmot_noisy()
+assert "full_mmmot_noisy" in PRESETS and "full_mmmot_ydet" in PRESETS
+assert cfg.assoc.revival_window == 4 and cfg.data.det_source == "noisy"
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+
+
+def test_track_cli_noisy_preset_without_jax():
+    """``--config full_mmmot_noisy --help`` and the preset itself under
+    the refusing importer."""
+    proc = subprocess.run([sys.executable, "-c", CLI_NOISY], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "full_mmmot_noisy" in proc.stdout

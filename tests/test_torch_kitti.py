@@ -29,7 +29,8 @@ from mmmot_tpu_torch.data.kitti_io import (KittiObject,
 from mmmot_tpu_torch.eval import evaluate_hota, evaluate_tracking
 
 from tests.test_devkit_differential import make_scenario
-from tests.torch_port_fixtures import build_kitti_tree, tiny_cfg_jax
+from tests.torch_port_fixtures import (  # noqa: F401
+    build_kitti_tree, tiny_cfg_jax, torch_one_thread)
 
 
 def _image(seed, shape=(37, 53)):

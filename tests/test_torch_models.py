@@ -30,7 +30,8 @@ from mmmot_tpu_torch.models.pointnet import POINT_IN_DIM
 from mmmot_tpu_torch.models.tracking_net import TrackingNet
 
 from tests.torch_port_fixtures import (assert_close, init_flax, port_net,
-                                       tiny_cfg_jax, to_numpy)
+                                       tiny_cfg_jax, to_numpy,
+                                       torch_one_thread)  # noqa: F401
 
 N = 8
 
@@ -59,11 +60,19 @@ def inputs(seed=0, lead=(2, N)):
 
 @pytest.mark.parametrize("name,yaml_path", [
     ("tiny_debug", "experiments/tiny_debug/config.yaml"),
-    ("full_mmmot", "experiments/full_mmmot/config.yaml")])
+    ("full_mmmot", "experiments/full_mmmot/config.yaml"),
+    ("full_mmmot_ydet", "experiments/full_mmmot_ydet/config.yaml"),
+    ("full_mmmot_noisy", "experiments/full_mmmot_noisy/config.yaml")])
 def test_presets_match_yaml(name, yaml_path):
     """The Python presets carry the YAML values of every field they have."""
-    port = {"tiny_debug": tiny_debug, "full_mmmot": full_mmmot}[name]()
+    import mmmot_tpu_torch.config as presets
+
+    port = getattr(presets, name)()
     ref = load_config(yaml_path)
+    assert port.name == ref.name
+    for f in dataclasses.fields(port.assoc):
+        assert getattr(port.assoc, f.name) == getattr(ref.assoc, f.name), (
+            "assoc", f.name)
     for sect in ("appearance", "point", "fusion", "affinity", "new_end"):
         p, r = getattr(port.model, sect), getattr(ref.model, sect)
         for f in dataclasses.fields(p):

@@ -15,7 +15,8 @@ from mmmot_tpu_torch.ops import crop_resize as tcr
 from mmmot_tpu_torch.ops import frustum as tfr
 from mmmot_tpu_torch.ops import masking as tm
 
-from tests.torch_port_fixtures import assert_close
+from tests.torch_port_fixtures import (  # noqa: F401
+    assert_close, torch_one_thread)
 
 
 @pytest.mark.parametrize("density,capacity", [(0.3, 12), (0.9, 12),

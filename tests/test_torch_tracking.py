@@ -23,7 +23,7 @@ from mmmot_tpu_torch.tracker.sequence import (extract_frames, pair_inputs,
 from mmmot_tpu_torch.tracker.tracker import TrackingModule, init_state
 
 from tests.torch_port_fixtures import (assert_close, init_flax, port_net,
-                                       tiny_cfg_jax)
+                                       tiny_cfg_jax, torch_one_thread)  # noqa: F401
 
 T, N, P, H, W, M = 6, 8, 16, 96, 320, 512
 CROP_WINDOW = 128

@@ -19,11 +19,29 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from mmmot_tpu.config import load_config
 from mmmot_tpu.models import model_entry
 
 RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def torch_one_thread():
+    """The port's CPU ops on one intra-op thread while a test module runs.
+
+    The port's tests run thousands of tiny eager ops (the auction's
+    rounds, the per-frame scans).  With several test processes sharing
+    the cores, each op's pool of spinning OpenMP threads waits on threads
+    that other processes preempted, which made one auction test 10 times
+    slower (146 s against 14 s, seven busy processes beside it).  Import
+    this fixture into a test module to apply it there."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def tiny_cfg_jax():
