@@ -66,8 +66,26 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    stages timed (extraction, band affinity, the per-frame scan, ids),
    the auction's rounds per frame, and the kernel's outputs on that
    window's own band and entry-band inputs held against the plain
-   version.  Its JSON line ``{"quality": ...}`` precedes the kernel
-   line.
+   version.  Its JSON line ``{"quality": ...}`` follows;
+8. look-alike: ``full_mmmot_lookalike`` (two GNN rounds and the learned
+   motion term, which enters the fused kernel as its ``link_bias``, on
+   the noisy stack with coverage uncapped).  First ``tiny_debug`` widths
+   with that affinity in float32, CPU against GPU, as in phase 7.  Then,
+   at full width with seeded random weights: the kernel's bias instance
+   against its plain version in float32 and bfloat16 at B=16 N=32 and at
+   the scan's B=2 N=64 (the bias must move the link; masked links
+   exactly 0), with its timings; heads calibrated as in phase 7; the
+   motion-only model (the same weights without the GNN rounds) on the
+   tree's first 16 frames, S=1: its revival hybrid must equal its
+   sequential scan (2 launches against 16); the runner over the tree
+   (window 64, two sequences per call, the sequential scan: 64
+   bias-instance launches per window and no other, no dropped
+   detections, ids that follow the revival rules); one window again
+   with its stages timed (extraction, GNN rounds, motion term, kernel,
+   scan and its auction, ghost pool, frame step) and the auction's
+   rounds per frame, three of its kernel calls held against the plain
+   version.  Its JSON line ``{"lookalike": ...}`` precedes the kernel
+   line, which lists the bias instance as a second entry.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -87,7 +105,8 @@ import numpy as np
 import torch
 
 from mmmot_tpu_torch.assoc.auction import auction_lap
-from mmmot_tpu_torch.config import full_mmmot, full_mmmot_noisy, tiny_debug
+from mmmot_tpu_torch.config import (full_mmmot, full_mmmot_lookalike,
+                                    full_mmmot_noisy, tiny_debug)
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels import build as kbuild
 from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
@@ -199,10 +218,11 @@ def affinity_inputs(dtype, gen, dev, B, D=512):
     return a, b, masks[0].contiguous(), masks[1].contiguous()
 
 
-def affinity_bound(mp, mc, params, dtype):
+def affinity_bound(mp, mc, params, dtype, bias=None):
     """(bound_ms, "bytes"|"operations"): the least time for the work these
     masks need (valid pairs and valid detections only) against the H100's
-    peak for ``dtype``, or the bytes every input and output must move."""
+    peak for ``dtype``, or the bytes every input and output must move
+    (the float32 ``bias`` [B, N, N] among them when given)."""
     K, D, H = params["w1"].shape
     hh = params["wn1"].shape[-1]
     np_, nc = mp.sum(1).double(), mc.sum(1).double()
@@ -212,7 +232,8 @@ def affinity_bound(mp, mc, params, dtype):
     B, N = mp.shape
     nbytes = (2 * B * K * N * D * item + 2 * B * N
               + sum(v.numel() * v.element_size() for v in params.values())
-              + 2 * (B * N * N + B * N) * item)
+              + 2 * (B * N * N + B * N) * item
+              + (0 if bias is None else bias.numel() * 4))
     t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -264,28 +285,36 @@ def entry_band_inputs(dtype, gen, dev, B=None, D=512):
     return a, b, mp.contiguous(), mc.contiguous()
 
 
-def measure_kernel(a, b, mp, mc, params, dtype, label):
-    """Kernel vs plain on one input, then kernel, per-launch, plain and
-    library timings (device time, and time per call with the host's
+def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None):
+    """Kernel vs plain on one input (with ``bias``, the kernel's bias
+    instance, which must move the link), then kernel, per-launch, plain
+    and library timings (device time, and time per call with the host's
     work; ``cuda_ms``) and the bound."""
     B = a.shape[0]
     with f32_parity(dtype == torch.float32):
-        got = fused_affinity(a, b, mp, mc, params)
-        want = affinity_plain(a, b, mp, mc, params)
+        got = fused_affinity(a, b, mp, mc, params, bias)
+        want = affinity_plain(a, b, mp, mc, params, bias)
         torch.cuda.synchronize()
         errs = check_agreement(got, want, a, b, mp, mc, params, dtype,
                                label)
+        if bias is not None:
+            moved = max_err(got.link, fused_affinity(a, b, mp, mc,
+                                                     params).link)
+            if moved <= 1e-2:
+                raise AssertionError(f"{label}: the bias moves the link by "
+                                     f"{moved} only")
+            errs["bias_moves_link"] = moved
         # The plain version's broadcast matmul takes tens of GB at
         # B=512: time it before the kernel's scratch can split the
         # allocator's cached block.
         del want
         torch.cuda.empty_cache()
         plain_ms, plain_call_ms = cuda_ms(
-            lambda: affinity_plain(a, b, mp, mc, params), 3)
+            lambda: affinity_plain(a, b, mp, mc, params, bias), 3)
         torch.cuda.empty_cache()
-        products, finish, _ = affinity_launches(a, b, mp, mc, params)
+        products, finish, _ = affinity_launches(a, b, mp, mc, params, bias)
         ms, call_ms = cuda_ms(
-            lambda: fused_affinity(a, b, mp, mc, params), 20)
+            lambda: fused_affinity(a, b, mp, mc, params, bias), 20)
         launch_ms = {"products": cuda_ms(products, 20)[0],
                      "finish": cuda_ms(finish, 20)[0]}
         # Library yardstick for the dominant product only: one batched
@@ -297,7 +326,7 @@ def measure_kernel(a, b, mp, mc, params, dtype, label):
         lib_ms, lib_call_ms = cuda_ms(lambda: torch.bmm(pair, params["w1"]),
                                       5)
         del pair, got
-    bound_ms, bound_by = affinity_bound(mp, mc, params, dtype)
+    bound_ms, bound_by = affinity_bound(mp, mc, params, dtype, bias)
     per_pair = mp.sum(1) * mc.sum(1)
     pairs = int(per_pair.sum())
     # Launch 1's blocks with work, computed from the masks (the kernel
@@ -454,10 +483,12 @@ def stage_timers(mod, stages=None):
     """While open, the tracking path's own stage functions run wrapped in
     timers that synchronise the device before and after each call:
     ``stages`` {name: (object, attribute)}, by default the flagship's
-    (extraction, ``mod.affinity``, the association, the id propagation).
-    Yields (times {stage: ms, summed over calls}, seen: "args" and "out"
-    of the fused kernel's last call, "kernel_calls" [(args, out)] of every
-    call, and "calls" {stage: [(ms, auction rounds run)] per call})."""
+    (extraction, ``mod.affinity``, the association, the id propagation),
+    and the fused kernel itself as "kernel".  Yields (times {stage: ms,
+    summed over calls}, seen: "args" (a, b, mask_prev, mask_curr, params,
+    link_bias) and "out" of the fused kernel's last call, "kernel_calls"
+    [(args, out)] of every call, and "calls" {stage: [(ms, auction rounds
+    run)] per call})."""
     import mmmot_tpu_torch.tracker.sequence as seq_mod
     import mmmot_tpu_torch.tracker.tracker as trk_mod
 
@@ -476,8 +507,10 @@ def stage_timers(mod, stages=None):
             return r
         return run
 
+    timed_kernel = timer("kernel", fused_affinity)
+
     def kernel(*args):
-        seen["args"], seen["out"] = args, fused_affinity(*args)
+        seen["args"], seen["out"] = args, timed_kernel(*args)
         seen["kernel_calls"].append((args, seen["out"]))
         return seen["out"]
 
@@ -486,6 +519,7 @@ def stage_timers(mod, stages=None):
                         "auction": (seq_mod, "associate"),
                         "ids": (seq_mod, "propagate_ids")}
     saved = {k: getattr(m, n) for k, (m, n) in stages.items()}
+    own = {k: n in vars(m) for k, (m, n) in stages.items()}
     for k, (m, n) in stages.items():
         setattr(m, n, timer(k, saved[k]))
     trk_mod.fused_affinity = kernel
@@ -493,10 +527,10 @@ def stage_timers(mod, stages=None):
         yield times, seen
     finally:
         for k, (m, n) in stages.items():
-            if m is mod:
-                delattr(m, n)           # the bound method again
-            else:
+            if own[k]:
                 setattr(m, n, saved[k])
+            else:
+                delattr(m, n)           # a method: the class's again
         trk_mod.fused_affinity = fused_affinity
 
 
@@ -754,7 +788,7 @@ def runner_split(mod, data, dev, out_dir: str):
         raise AssertionError(f"split: {stats['n_windows']} windows")
     times["load"] = stats["load_s"] * 1e3
     times["window"] = stats["window_s"][0] * 1e3
-    a, b, mp, mc, params = seen["args"]
+    a, b, mp, mc, params, _ = seen["args"]
     B = RUNNER_S * RUNNER_WINDOW
     if a.shape[0] != B or a.dtype != torch.bfloat16:
         raise AssertionError(f"split: kernel got {tuple(a.shape)} "
@@ -941,12 +975,13 @@ def results_match(a, b, what: str) -> int:
     return loose
 
 
-def noisy_tiny_net(device):
-    """tiny_debug with seeded random weights, the new/end logits lowered
-    and the det-head logits raised, so that links, births, LP rejections
-    and ghosts all occur (the weights of ``tests/test_torch_quality.py``'s
-    kind)."""
-    net = init_random_(TrackingNet(tiny_debug().model, device=device), 7)
+def noisy_tiny_net(device, model=None):
+    """tiny_debug (or ``model``) with seeded random weights, the new/end
+    logits lowered and the det-head logits raised, so that links, births,
+    LP rejections and ghosts all occur (the weights of
+    ``tests/test_torch_quality.py``'s kind)."""
+    net = init_random_(TrackingNet(model or tiny_debug().model,
+                                   device=device), 7)
     with torch.no_grad():
         for head in (net.new_end.new_mlp, net.new_end.end_mlp):
             head.dense_1.bias.fill_(-1.0)
@@ -996,25 +1031,26 @@ def check_quality_ids(ids, det_mask, K: int) -> None:
             last[i] = t
 
 
-def quality_agreement(root: str, dev, tmp: str):
-    """tiny_debug widths with full_mmmot_noisy's association, float32, on
-    the first frames of both sequences, window 8, two per call, on the
-    CPU (plain versions) and on the GPU (kernels): the result files,
-    coverage rows included, must match (``results_match``)."""
+def quality_agreement(root: str, dev, tmp: str, cfg=None, model=None):
+    """tiny_debug widths (``model``: tiny widths of another affinity) with
+    ``cfg``'s association (default full_mmmot_noisy's), float32, on the
+    first frames of both sequences, window 8, two per call, on the CPU
+    (plain versions) and on the GPU (kernels): the result files, coverage
+    rows included, must match (``results_match``)."""
     import dataclasses
 
-    cfg = full_mmmot_noisy()
+    cfg = cfg or full_mmmot_noisy()
     data = dataclasses.replace(tiny_debug().data, root=root,
                                det_source="noisy")
     files, counts = {}, None
     for device in ("cpu", dev):
-        before = fused_affinity.launches
-        out = f"{tmp}/quality_agree_{torch.device(device).type}"
+        before = kernel_launches()
+        out = f"{tmp}/{cfg.name}_agree_{torch.device(device).type}"
         stats = track_kitti_sequences(
-            TrackingModule(noisy_tiny_net(device), cfg.assoc), data, out,
-            window=AGREE_WINDOW, batch_sequences=RUNNER_S,
+            TrackingModule(noisy_tiny_net(device, model), cfg.assoc), data,
+            out, window=AGREE_WINDOW, batch_sequences=RUNNER_S,
             max_frames=AGREE_FRAMES, score_sweep=(0.5,))
-        launched = fused_affinity.launches - before
+        launched = kernel_launches() - before
         if (device == "cpu") == (launched > 0):
             raise AssertionError(f"quality agreement on {device}: "
                                  f"{launched} kernel launches")
@@ -1025,7 +1061,7 @@ def quality_agreement(root: str, dev, tmp: str):
     if counts["coverage_rows"] == 0:
         raise AssertionError("quality agreement: no coverage row to compare")
     loose = results_match(files["cpu"], files[dev], "quality agreement")
-    stage(f"quality agreement: tiny f32 noisy, {AGREE_FRAMES} frames x "
+    stage(f"{cfg.name} agreement: tiny f32, {AGREE_FRAMES} frames x "
           f"{RUNNER_S} sequences, window {AGREE_WINDOW}: "
           f"{len(files['cpu'])} files equal on CPU and GPU ({loose} "
           f"coverage scores within the float32 tolerance); {counts}")
@@ -1045,13 +1081,18 @@ def result_files(d: str):
     return out
 
 
-def quality_strategy_gate(net, dev, inputs):
+def kernel_launches() -> int:
+    """Launches of the fused kernel so far, both instances."""
+    return fused_affinity.launches + fused_affinity.bias_launches
+
+
+def quality_strategy_gate(net, dev, inputs, cfg=None):
     """The revival hybrid against the sequential ``step_from_feats`` scan
-    at full width in bf16 with full_mmmot_noisy's association, on each of
-    ``inputs`` {name: (images, clouds, boxes, det_mask, proj,
-    cloud_valid)}: ids and coverage outputs equal, 2 kernel launches
-    against one per frame."""
-    cfg = full_mmmot_noisy()
+    at full width in bf16 with ``cfg``'s association (default
+    full_mmmot_noisy's), on each of ``inputs`` {name: (images, clouds,
+    boxes, det_mask, proj, cloud_valid)}: ids and coverage outputs equal,
+    2 kernel launches against one per frame."""
+    cfg = cfg or full_mmmot_noisy()
     report = {}
     for what, (images, clouds, boxes, det_mask, proj, cv) in inputs.items():
         n_valid, T_in = int(det_mask.sum()), det_mask.shape[0]
@@ -1062,12 +1103,12 @@ def quality_strategy_gate(net, dev, inputs):
                   crop_window=crop_window(boxes, det_mask, images.shape[2]))
         outs, launches = {}, {}
         for name, hybrid in (("revival", None), ("sequential", False)):
-            fused_affinity.launches = 0
+            before = kernel_launches()
             out = track_sequence_from_frames(
                 TrackingModule(net, cfg.assoc, hybrid_presolve=hybrid),
                 images, clouds, boxes, det_mask, proj, **kw)
             outs[name] = {k: v.cpu() for k, v in out.items()}
-            launches[name] = fused_affinity.launches
+            launches[name] = kernel_launches() - before
         if launches != {"revival": 2, "sequential": T_in}:
             raise AssertionError(f"strategy gate {what}: launches "
                                  f"{launches}")
@@ -1082,7 +1123,7 @@ def quality_strategy_gate(net, dev, inputs):
             "ids": got["ids"].numpy(), "ghost_ids": got["ghost_ids"].numpy(),
             "det_mask": det_mask.cpu().numpy()}}, QUALITY_K)
         report[what] = dict(frames=T_in, launches=launches, **counts)
-        stage(f"quality strategy gate ({what}): revival hybrid == "
+        stage(f"{cfg.name} strategy gate ({what}): revival hybrid == "
               f"sequential scan on {T_in} frames at full width "
               f"({launches}); {counts}")
     return report
@@ -1100,7 +1141,7 @@ def quality_window_split(mod, data, out_dir: str):
     import mmmot_tpu_torch.tracker.tracker as trk_mod
 
     stages = {"extract": (seq_mod, "extract_frames_batched"),
-              "band_affinity": (mod, "affinity"),
+              "band_affinity": (mod, "affinity_link"),
               "scan": (mod, "frame_decisions"),
               "scan_auction": (trk_mod, "associate"),
               "ids": (seq_mod, "advance_pool")}
@@ -1120,7 +1161,7 @@ def quality_window_split(mod, data, out_dir: str):
     with torch.inference_mode():
         for what, (args, out) in zip(("bands", "entry"),
                                      seen["kernel_calls"]):
-            a, b, mp, mc, params = args
+            a, b, mp, mc, params, _ = args
             want = affinity_plain(a, b, mp, mc, params)
             errs[what] = check_agreement(
                 out, want, a, b, mp, mc, params, torch.bfloat16,
@@ -1244,6 +1285,175 @@ def quality_phase(net, dev, smi: str, root: str, tmp: str):
     return result
 
 
+# Phase 8: the look-alike stack (full_mmmot_lookalike: two GNN rounds and
+# the learned motion term, which enters the kernel as its link_bias, on
+# the noisy stack with coverage uncapped) on the same tree.  GNN rounds
+# rule out the pre-solves: each frame runs the rounds, the motion MLP and
+# one bias-instance launch over its S frame pairs at 2N = 64 slots.
+
+
+def lookalike_tiny_model():
+    """tiny_debug widths with the look-alike affinity (two GNN rounds,
+    motion_dim 8)."""
+    import dataclasses
+
+    m = tiny_debug().model
+    return dataclasses.replace(m, affinity=dataclasses.replace(
+        m.affinity, gnn_rounds=2, motion_dim=8))
+
+
+def check_bias_kernel(net, dev):
+    """The kernel's bias instance against its plain version in float32
+    and bfloat16 with phase 3's tolerances, at the flagship's B=16 N=32
+    and at the look-alike scan's B=S=2 N=64 (a state of 2N slots against
+    N real and N padded current slots; pair 0's state empty, as in a
+    run's first window), with a N(0, 2) float32 bias that must move the
+    link; masked links exactly 0."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = build_affinity_params(net, dtype)
+        for what, inputs in (
+                ("b16", affinity_inputs(dtype, gen, dev, T)),
+                ("scan", entry_band_inputs(dtype, gen, dev, RUNNER_S))):
+            B, n = inputs[0].shape[0], inputs[0].shape[2]
+            bias = 2.0 * torch.randn((B, n, n), generator=gen, device=dev)
+            report[dtype, what] = measure_kernel(
+                *inputs, params, dtype, f"link_bias B={B} N={n}", bias)
+    return report
+
+
+def lookalike_window_split(mod, data, out_dir: str):
+    """One window of the look-alike runner (the first 64 frames of both
+    sequences) with its stages timed: extraction, per frame the GNN
+    rounds, the motion term, the fused kernel (bias instance), the scan
+    (normalisation, gates, new/end heads and the auction; the auction
+    alone as scan_auction), the ghost pool (ids) and the whole frame
+    step.  Three of the window's 64 kernel calls (B=2 frame pairs at
+    N=64) are held against the plain version on their own inputs."""
+    import mmmot_tpu_torch.tracker.sequence as seq_mod
+    import mmmot_tpu_torch.tracker.tracker as trk_mod
+
+    stages = {"extract": (seq_mod, "extract_frames_batched"),
+              "gnn": (mod.net, "gnn_refine"),
+              "motion": (mod.net, "motion_bias"),
+              "scan": (mod, "frame_decisions"),
+              "scan_auction": (trk_mod, "associate"),
+              "ids": (mod, "_revival_state"),
+              "step": (mod, "step_from_feats")}
+    auction_lap.rounds = 0
+    with stage_timers(mod, stages) as (times, seen):
+        stats = track_kitti_sequences(
+            mod, data, out_dir, window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
+            evaluate=False)
+    calls = seen["kernel_calls"]
+    if stats["n_windows"] != 1 or len(calls) != RUNNER_WINDOW:
+        raise AssertionError(f"lookalike split: {stats['n_windows']} "
+                             f"windows, {len(calls)} kernel calls")
+    times["window"] = stats["window_s"][0] * 1e3
+    times["load"] = stats["load_s"] * 1e3
+    rounds = sorted(r for _, r in seen["calls"]["scan"])
+    errs = {}
+    with torch.inference_mode():
+        for i in (0, RUNNER_WINDOW // 2, RUNNER_WINDOW - 1):
+            (a, b, mp, mc, params, bias), out = calls[i]
+            if bias is None or a.shape[:3] != (RUNNER_S, 3, 2 * N):
+                raise AssertionError(
+                    f"lookalike split: kernel call {i} got "
+                    f"{tuple(a.shape)}, bias {bias is not None}")
+            errs[f"frame_{i}"] = check_agreement(
+                out, affinity_plain(a, b, mp, mc, params, bias), a, b, mp,
+                mc, params, torch.bfloat16, f"lookalike frame {i}")
+    torch.cuda.empty_cache()
+    return times, rounds, errs
+
+
+def lookalike_phase(dev, smi: str, root: str, tmp: str):
+    """Phase 8: the tiny agreement gate; ``full_mmmot_lookalike`` at full
+    width (seeded random weights, heads calibrated on the tree as in
+    phase 7): the bias instance against its plain version; the
+    motion-only model's revival hybrid against its sequential scan; the
+    runner over the whole tree (window 64, two sequences per call: 64
+    bias-instance launches per window, no other); one window with its
+    stages timed.  Returns (result, the kernel report)."""
+    import dataclasses
+
+    cfg = full_mmmot_lookalike()
+    agreement = quality_agreement(root, dev, tmp, cfg, lookalike_tiny_model())
+    net = init_random_(TrackingNet(cfg.model, device=dev), 0)
+    kern = check_bias_kernel(net, dev)
+    data = dataclasses.replace(cfg.data, root=root)
+    heads, tree_frames = calibrate_heads(net, data, dev)
+    # The same weights without the GNN rounds: motion alone keeps the
+    # revival pre-solve sound.
+    motion_only = TrackingNet(dataclasses.replace(
+        cfg.model, affinity=dataclasses.replace(cfg.model.affinity,
+                                                gnn_rounds=0)), device=dev)
+    motion_only.load_state_dict({k: v for k, v in net.state_dict().items()
+                                 if ".gnn_" not in k})
+    gate = quality_strategy_gate(motion_only, dev,
+                                 {"tree_frames": tree_frames}, cfg)
+    del motion_only
+    mod = TrackingModule(net, cfg.assoc)
+    if mod.hybrid_presolve or mod.parallel_assoc:
+        raise AssertionError("lookalike: not the sequential scan")
+    fused_affinity.launches = fused_affinity.bias_launches = 0
+    auction_lap.rounds = 0
+    stats = track_kitti_sequences(
+        mod, data, f"{tmp}/lookalike", window=RUNNER_WINDOW,
+        batch_sequences=RUNNER_S)
+    launches = {"link_bias": fused_affinity.bias_launches,
+                "no_bias": fused_affinity.launches}
+    rounds = auction_lap.rounds
+    if (launches != {"link_bias": RUNNER_WINDOW * stats["n_windows"],
+                     "no_bias": 0} or stats["n_windows"] < 2):
+        raise AssertionError(f"lookalike runner: launches {launches} for "
+                             f"{stats['n_windows']} windows")
+    if stats["n_dropped"] != 0:
+        raise AssertionError(f"lookalike runner: n_dropped "
+                             f"{stats['n_dropped']}")
+    for seq, o in stats["outputs"].items():
+        for k in ("det_score", "ghost_scores", "ghost_boxes"):
+            if not np.isfinite(o[k]).all():
+                raise AssertionError(f"{seq}: non-finite {k}")
+        check_quality_ids(o["ids"], o["det_mask"], QUALITY_K)
+    counts = quality_counts(stats["outputs"], QUALITY_K)
+    split, frame_rounds, split_errs = lookalike_window_split(
+        mod, data, f"{tmp}/lookalike_split")
+    counted = stats["window_s"][1:]
+    result = {
+        "config": cfg.name, "frames": stats["frames_loaded"],
+        "windows": stats["n_windows"], "S": RUNNER_S,
+        "window": RUNNER_WINDOW, "fps": stats["fps"],
+        "frames_counted": stats["total_frames"],
+        "window_ms": [1e3 * x for x in stats["window_s"]],
+        "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
+        "auction_rounds": rounds, "launches": launches,
+        "launches_per_window": launches["link_bias"] / stats["n_windows"],
+        "split_ms": split,
+        "split_rounds_per_frame": {
+            "min": frame_rounds[0], "median": frame_rounds[len(
+                frame_rounds) // 2], "max": frame_rounds[-1],
+            "frames": len(frame_rounds), "total": sum(frame_rounds)},
+        "split_ms_per_round": split["scan_auction"] / max(
+            1, sum(frame_rounds)),
+        "split_kernel_vs_plain_max_err": split_errs, **counts,
+        "mota_random_weights": stats["metrics"].mota,
+        "hota_random_weights": stats["hota"].hota,
+        "agreement": agreement, "motion_strategy_gate": gate,
+        "heads": heads, "gpu": smi}
+    stage(f"lookalike runner: {result['frames']} frames, "
+          f"{result['windows']} windows of {RUNNER_WINDOW} x S={RUNNER_S}, "
+          f"{stats['fps']:.2f} FPS after the first window, windows "
+          f"{result['window_ms']} ms, {rounds} auction rounds, launches "
+          f"{launches}, split {split} ms, rounds per frame "
+          f"{result['split_rounds_per_frame']}, {counts}, MOTA "
+          f"{result['mota_random_weights']:.4f} HOTA "
+          f"{result['hota_random_weights']:.4f} (random weights), on {smi}")
+    return result, kern
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -1294,6 +1504,9 @@ def main(argv=None) -> int:
               f"in {time.perf_counter() - t:.1f} s")
         runner = runner_phase(net, dev, smi, root, tmp)
         quality = quality_phase(net, dev, smi, root, tmp)
+        del net
+        torch.cuda.empty_cache()
+        lookalike, kern_bias = lookalike_phase(dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -1303,6 +1516,9 @@ def main(argv=None) -> int:
                                   "valid_pairs", "errs", "frame_pairs",
                                   "slots")}
 
+    def worst(errs):
+        return max(errs[k] for k in ("link", "link_norm", "new", "end"))
+
     bf = kern[torch.bfloat16, T]
     entry = {
         "name": "fused_affinity", "route": "cuda",
@@ -1311,8 +1527,10 @@ def main(argv=None) -> int:
         "launches": run["launches"],
         "launches_by_path": {"main_path": run["launches"],
                              "runner": runner["launches"],
-                             "quality_runner": quality["launches"]},
-        "max_abs_err": max(bf["errs"].values()),
+                             "quality_runner": quality["launches"],
+                             "lookalike_runner": lookalike["launches"][
+                                 "no_bias"]},
+        "max_abs_err": worst(bf["errs"]),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
         "library_ms": bf["library_ms"],
@@ -1329,6 +1547,35 @@ def main(argv=None) -> int:
                     "entry_band": at(torch.float32, "entry")},
         "ptxas": ptxas, "sass_tensor_core": sass,
     }
+    bsc = kern_bias[torch.bfloat16, "scan"]
+
+    def bias_at(dtype, what):
+        r = kern_bias[dtype, what]
+        return {k: r[k] for k in ("ms", "call_ms", "launch_ms", "plain_ms",
+                                  "library_ms", "bound_ms", "bound_by",
+                                  "valid_pairs", "errs", "frame_pairs",
+                                  "slots")}
+
+    entry_bias = {
+        "name": "fused_affinity[link_bias]", "route": "cuda",
+        "source": "mmmot_tpu_torch/csrc/affinity.cu",
+        "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
+        "instance": "link_bias (affinity_kernel.py:209; finish_kernel<T, "
+                    "true>)",
+        "launches": lookalike["launches"]["link_bias"],
+        "max_abs_err": worst(bsc["errs"]),
+        "ms": bsc["ms"], "plain_ms": bsc["plain_ms"],
+        "bound_ms": bsc["bound_ms"], "bound_by": bsc["bound_by"],
+        "library_ms": bsc["library_ms"],
+        "library_call": "torch.bmm [K, B*N*N, D] x [K, D, H] (the W1 "
+                        "product alone, over all pairs)",
+        "dtype": "bfloat16", "frame_pairs": bsc["frame_pairs"],
+        "slots": bsc["slots"], "call_ms": bsc["call_ms"],
+        "launch_ms": bsc["launch_ms"], "valid_pairs": bsc["valid_pairs"],
+        "b16": bias_at(torch.bfloat16, "b16"),
+        "float32": {"scan": bias_at(torch.float32, "scan"),
+                    "b16": bias_at(torch.float32, "b16")},
+    }
     print(json.dumps({"main_path": {
         "frames": T, "detections": run["n_valid"], "warm_ms": run["warm_ms"],
         "auction_rounds": run["auction_rounds"],
@@ -1336,7 +1583,8 @@ def main(argv=None) -> int:
         "profiled": run.get("profiled"), "gpu": smi}}))
     print(json.dumps({"runner": runner}))
     print(json.dumps({"quality": quality}))
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"lookalike": lookalike}))
+    print(json.dumps({"kernels": [entry, entry_bias]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

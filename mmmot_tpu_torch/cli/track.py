@@ -5,6 +5,8 @@
         --data-root data/kitti_tracking --batch-sequences 2
     python -m mmmot_tpu_torch.cli.track --config full_mmmot_noisy \\
         --data-root data/kitti_tracking --batch-sequences 2
+    python -m mmmot_tpu_torch.cli.track --config full_mmmot_lookalike \\
+        --data-root data/kitti_tracking --batch-sequences 2
 
 Tracks the sequences of a KITTI tracking tree in windows
 (``tracker/kitti_runner.py``), writes one KITTI result txt per sequence
@@ -13,10 +15,11 @@ scores them with the devkit and HOTA (``summary_<cls>.txt``,
 ``hota_<cls>.txt``).  ``--config`` names a preset of
 ``mmmot_tpu_torch.config``, its association included
 (``full_mmmot_noisy``: the noisy-detector quality stack, reading
-``detections/noisy/``).  Weights come from ``--weights`` (a flat
-``params/...``, ``batch_stats/...`` numpy archive, see
-``compat/from_jax.py::save_npz``) or are random from ``--seed``.  The
-GPU is used unless ``--cpu`` is given.
+``detections/noisy/``; ``full_mmmot_lookalike``: that stack with GNN
+refine and the learned motion term, at 112² crops).  Weights come from
+``--weights`` (a flat ``params/...``, ``batch_stats/...`` numpy archive,
+see ``compat/from_jax.py::save_npz``) or are random from ``--seed``.
+The GPU is used unless ``--cpu`` is given.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ import logging
 import os
 
 PRESETS = ("full_mmmot", "full_mmmot_ydet", "full_mmmot_noisy",
-           "tiny_debug")
+           "full_mmmot_lookalike", "tiny_debug")
 
 
 def parse_args(argv=None):

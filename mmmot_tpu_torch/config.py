@@ -1,15 +1,16 @@
 """Configuration of the port: frozen dataclasses and Python presets.
 
-Only the knobs the flagship raw-frames path, the KITTI runner and the
-association quality stack read are carried.  The
-values that the path supports but does not vary (VGG with batch norm and
-skip pooling, subabs correlation, a 2-layer link head, dual softmax, v2
-new/end heads with max pooling, ``add`` score fusion over the
-fused/image/lidar branches, fusion variant C) are fixed by the modules
-themselves.  The crop size and the points per detection are the
-model's (the JAX ``data`` section repeats them).  Field names and
-defaults follow the JAX package's ``mmmot_tpu/config.py``.  No YAML is parsed:
-each preset spells out its ``experiments/<name>/config.yaml``.
+Only the knobs the flagship raw-frames path, the KITTI runner, the
+association quality stack and the look-alike stack (GNN refine, learned
+motion, the class gate) read are carried.  The values that the path
+supports but does not vary (VGG with batch norm and skip pooling, subabs
+correlation, a 2-layer link head, dual softmax, v2 new/end heads with
+max pooling, ``add`` score fusion over the fused/image/lidar branches,
+fusion variant C) are fixed by the modules themselves.  The crop size
+and the points per detection are the model's (the JAX ``data`` section
+repeats them).  Field names and defaults follow the JAX package's
+``mmmot_tpu/config.py``.  No YAML is parsed: each preset spells out its
+``experiments/<name>/config.yaml``.
 """
 
 from __future__ import annotations
@@ -56,9 +57,21 @@ class FusionConfig:
 
 @dataclass(frozen=True)
 class AffinityConfig:
-    """Per-branch link head: subabs correlation -> Dense+BN+ReLU -> Dense."""
+    """Per-branch link head: subabs correlation -> Dense+BN+ReLU -> Dense.
+
+    ``gnn_rounds`` message-passing hops refine each branch's embeddings
+    across the frame pair before the correlation (``GNNRefine``);
+    ``motion_dim`` > 0 adds a learned box-geometry term of that hidden
+    width to the raw link (``MotionScore``)."""
 
     hidden_dim: int = 512
+    gnn_rounds: int = 0
+    motion_dim: int = 0
+
+    def __post_init__(self):
+        if self.motion_dim < 0:
+            raise ValueError(f"motion_dim must be >= 0, got "
+                             f"{self.motion_dim}")
 
 
 @dataclass(frozen=True)
@@ -146,8 +159,8 @@ class AssocConfig:
       ``coverage_min_score``.
     - ``gate_predict`` gates against each track's predicted box (frozen
       box + (missed + 1) * last link velocity).
-    - ``class_gate`` (joint classes) is not ported yet: the tracker
-      raises ``NotImplementedError`` for it.
+    - ``class_gate`` forbids links between detections of different
+      class groups (joint classes, ``data.track_class="All"``).
     """
 
     solver: str = "auction"
@@ -255,3 +268,24 @@ def full_mmmot_noisy() -> Config:
                           raw_new_end=True, revival_window=4, iou_gate=0.1,
                           iou_weight=1.0, ghost_coverage=True,
                           coverage_max_miss=1))
+
+
+def full_mmmot_lookalike() -> Config:
+    """``experiments/full_mmmot_lookalike/config.yaml``: the look-alike
+    operating point (two GNN hops and the learned motion term on top of
+    the noisy stack, coverage uncapped) at 112² crops and 256 points."""
+    base = full_mmmot()
+    m = base.model
+    return dataclasses.replace(
+        base, name="full_mmmot_lookalike",
+        model=dataclasses.replace(
+            m, appearance=dataclasses.replace(m.appearance,
+                                              crop_size=(112, 112)),
+            point=dataclasses.replace(m.point, point_len=256),
+            affinity=AffinityConfig(hidden_dim=512, gnn_rounds=2,
+                                    motion_dim=8)),
+        data=dataclasses.replace(base.data, det_source="noisy",
+                                 crop_size=(112, 112), point_len=256),
+        assoc=AssocConfig(solver="auction", use_det_scores=True,
+                          raw_new_end=True, revival_window=4, iou_gate=0.1,
+                          iou_weight=1.0, ghost_coverage=True))

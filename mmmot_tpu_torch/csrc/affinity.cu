@@ -8,7 +8,7 @@
 //   h_k       = relu(BN_eval(pair_k @ W1_k + b1_k))   (dot in f32, cast,
 //                                                      BN in f32, cast)
 //   score_k   = h_k . w2_k + b2_k                     (f32)
-//   link      = mask * sum_k score_k                  (cast)
+//   link      = mask * (sum_k score_k + bias)         (f32 sum, cast)
 //   link_norm = dual masked softmax(link)
 //   new / end = v2 heads: max-pool link over rows / columns, then
 //               relu([feat | pooled] @ Wn1 + bn1) @ wn2 + bn2, masked.
@@ -65,8 +65,8 @@
 //   tile and the cp.async ring.
 //
 // Launch 2 (finish_kernel), grid (B): per frame pair, link = cast(sum_k
-// part) at valid pairs and an exact 0 elsewhere (every element written
-// once, `link` is not zeroed by the wrapper), the dual softmax and the
+// part [+ bias]) at valid pairs and an exact 0 elsewhere (every element
+// written once, `link` is not zeroed by the wrapper), the dual softmax and the
 // max pools over it in shared memory, then the heads' epilogues from hs:
 // rnd(s + pooled * wp + b1) in f32, ReLU and the f32 dot with w2 (a warp
 // per detection, lanes over the hh hidden units), 0 for masked
@@ -575,7 +575,13 @@ products_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // epilogues, for frame pair blockIdx.x.  A warp per row (then per
 // column) of the softmax, lanes over its entries; a warp per valid
 // detection of the heads, lanes over the hidden units.
-template <typename T>
+//
+// kBias: the instance with the optional additive link bias [B, N, N] f32
+// (the learned motion term of mmmot_tpu/kernels/affinity_kernel.py's
+// `link_bias`), added to the f32 branch sum before the mask select and
+// the cast, so the softmax and both pools read the biased link.  The
+// instance without it compiles to the bias-free instructions.
+template <typename T, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
               const uint8_t* __restrict__ mp, const uint8_t* __restrict__ mc,
@@ -584,8 +590,8 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
               const float* __restrict__ wep, const float* __restrict__ be1,
               const T* __restrict__ ew2, const float* __restrict__ eb2,
               T* __restrict__ link, T* __restrict__ norm,
-              T* __restrict__ new_out, T* __restrict__ end_out, int K, int N,
-              int HH) {
+              T* __restrict__ new_out, T* __restrict__ end_out,
+              const float* __restrict__ bias, int K, int N, int HH) {
   constexpr int kLd = kMaxN + 1;  // conflict-free rows and columns
   __shared__ float link_s[kMaxN * kLd];
   __shared__ float row_s[kMaxN * kLd];
@@ -604,10 +610,10 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
     mcb[n] = mc[pb * N + n] != 0;
   }
   __syncthreads();
-  // link = cast(sum over branches, in branch order) at valid pairs, an
-  // exact 0 elsewhere.  A thread's elements are loaded together, and
-  // unconditionally so that the loads do not wait on the masks (scratch
-  // that launch 1 left unwritten is discarded).
+  // link = cast(sum over branches, in branch order, then + bias) at
+  // valid pairs, an exact 0 elsewhere.  A thread's elements are loaded
+  // together, and unconditionally so that the loads do not wait on the
+  // masks (scratch that launch 1 left unwritten is discarded).
   constexpr int kPer = kMaxN * kMaxN / kThreads;
   float v[kPer];
 #pragma unroll
@@ -617,6 +623,12 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
 #pragma unroll
     for (int u = 0; u < kPer; ++u)
       if (tid + u * kThreads < NN) v[u] += pk[tid + u * kThreads];
+  }
+  if constexpr (kBias) {
+    const float* pbias = bias + (long)pb * NN;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u)
+      if (tid + u * kThreads < NN) v[u] += pbias[tid + u * kThreads];
   }
 #pragma unroll
   for (int u = 0; u < kPer; ++u) {
@@ -758,14 +770,16 @@ int launch_finish(const void* part, const void* hs, const void* mp,
                   const void* mc, const void* wnp, const void* bn1,
                   const void* wn2, const void* bn2, const void* wep,
                   const void* be1, const void* ew2, const void* eb2,
-                  void* link, void* norm, void* new_out, void* end_out, int B,
-                  int K, int N, int HH, cudaStream_t stream) {
-  finish_kernel<T><<<B, kThreads, 0, stream>>>(
+                  void* link, void* norm, void* new_out, void* end_out,
+                  const void* bias, int B, int K, int N, int HH,
+                  cudaStream_t stream) {
+  auto kernel = bias ? finish_kernel<T, true> : finish_kernel<T, false>;
+  kernel<<<B, kThreads, 0, stream>>>(
       (const float*)part, (const float*)hs, (const uint8_t*)mp,
       (const uint8_t*)mc, (const float*)wnp, (const float*)bn1,
       (const T*)wn2, (const float*)bn2, (const float*)wep, (const float*)be1,
       (const T*)ew2, (const float*)eb2, (T*)link, (T*)norm, (T*)new_out,
-      (T*)end_out, K, N, HH);
+      (T*)end_out, (const float*)bias, K, N, HH);
   return (int)cudaGetLastError();
 }
 
@@ -810,24 +824,27 @@ int mmmot_affinity_products(const void* a, const void* b, const void* mp,
 
 // Launch 2, after launch 1 on the same stream: link, link_norm, new and
 // end (compute dtype; every element written).  wn2 and ew2 are in the
-// compute dtype, wnp, bn1, bn2, wep, be1 and eb2 float32.
+// compute dtype, wnp, bn1, bn2, wep, be1 and eb2 float32.  bias is a
+// contiguous float32 [B, N, N] added to the link before the mask, or
+// null for none.
 int mmmot_affinity_finish(const void* part, const void* hs, const void* mp,
                           const void* mc, const void* wnp, const void* bn1,
                           const void* wn2, const void* bn2, const void* wep,
                           const void* be1, const void* ew2, const void* eb2,
                           void* link, void* norm, void* new_out,
-                          void* end_out, int B, int K, int N, int HH,
-                          int is_bf16, void* stream) {
+                          void* end_out, const void* bias, int B, int K,
+                          int N, int HH, int is_bf16, void* stream) {
   if (B <= 0 || K <= 0 || N <= 0 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
     return launch_finish<__nv_bfloat16>(part, hs, mp, mc, wnp, bn1, wn2, bn2,
                                         wep, be1, ew2, eb2, link, norm,
-                                        new_out, end_out, B, K, N, HH, s);
+                                        new_out, end_out, bias, B, K, N, HH,
+                                        s);
   return launch_finish<float>(part, hs, mp, mc, wnp, bn1, wn2, bn2, wep, be1,
-                              ew2, eb2, link, norm, new_out, end_out, B, K, N,
-                              HH, s);
+                              ew2, eb2, link, norm, new_out, end_out, bias, B,
+                              K, N, HH, s);
 }
 
 }  // extern "C"

@@ -4,6 +4,8 @@ Port of ``mmmot_tpu/kernels/affinity_kernel.py`` (``pallas_affinity``,
 ``build_affinity_params``).  For B frame pairs and the K score branches
 (fused, image, lidar), from the per-branch embeddings it computes the raw
 link scores, the dual-softmax ``link_norm`` and the v2 new/end logits.
+An optional ``link_bias`` [B, N, N] float32 (the learned motion term) is
+added to the branch sum before the mask, the softmax and the pools.
 
 ``fused_affinity`` launches ``csrc/affinity.cu`` for CUDA tensors and
 runs ``affinity_plain`` for CPU tensors; there is no other fallback.
@@ -75,13 +77,14 @@ def build_affinity_params(net, compute_dtype: torch.dtype
     return {k: v.detach() for k, v in out.items()}
 
 
-def link_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor]):
-    """Raw link scores [B, N, N] (the kernel's first launch): per branch
-    |a_i - b_j| @ W1 (f32 accumulate, cast) + b1, eval BN in f32, ReLU,
-    . w2 + b2 in f32; summed over branches, masked, cast.
+def link_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
+               link_bias=None):
+    """Raw link scores [B, N, N]: per branch |a_i - b_j| @ W1 (f32
+    accumulate, cast) + b1, eval BN in f32, ReLU, . w2 + b2 in f32;
+    summed over branches in f32, plus ``link_bias`` (f32), masked, cast.
 
     a, b [B, K, N, D] (branch 0 = fused) in the compute dtype; masks
-    [B, N] bool.
+    [B, N] bool; link_bias [B, N, N] float32 or None.
     """
     cdt = a.dtype
     pm = pair_mask(mask_prev, mask_curr)
@@ -93,7 +96,10 @@ def link_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor]):
     h = torch.relu(((h0.float() - mean) * inv * scale + shift).to(cdt))
     score = torch.matmul(h.float(), p["w2"].float()[None, :, None])[..., 0]
     score = score + p["b2"][None, :, None, None]         # [B, K, N, N]
-    return (score.sum(dim=1) * pm.float()).to(cdt)
+    link = score.sum(dim=1)
+    if link_bias is not None:
+        link = link + link_bias
+    return (link * pm.float()).to(cdt)
 
 
 def heads_plain(link, a, b, mask_prev, mask_curr,
@@ -120,11 +126,11 @@ def heads_plain(link, a, b, mask_prev, mask_curr,
     return AffinityOutput(link, norm, new, end)
 
 
-def affinity_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor]
-                   ) -> AffinityOutput:
+def affinity_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
+                   link_bias=None) -> AffinityOutput:
     """The kernel's function in PyTorch ops (materialises the
     [B, K, N, N, D] pair tensor); outputs in the compute dtype."""
-    link = link_plain(a, b, mask_prev, mask_curr, p)
+    link = link_plain(a, b, mask_prev, mask_curr, p, link_bias)
     return heads_plain(link, a, b, mask_prev, mask_curr, p)
 
 
@@ -163,20 +169,21 @@ def _library() -> ctypes.CDLL:
                            f"{lib.mmmot_affinity_max_n()}, MAX_N is {MAX_N}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mmmot_affinity_products.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
-    lib.mmmot_affinity_finish.argtypes = [ptr] * 16 + [i32] * 5 + [ptr]
+    lib.mmmot_affinity_finish.argtypes = [ptr] * 17 + [i32] * 5 + [ptr]
     lib.mmmot_affinity_products.restype = i32
     lib.mmmot_affinity_finish.restype = i32
     return lib
 
 
 def affinity_launches(a, b, mask_prev, mask_curr,
-                      params: Dict[str, torch.Tensor]):
+                      params: Dict[str, torch.Tensor], link_bias=None):
     """Check CUDA inputs, allocate the outputs and the kernel's scratch,
     and return ``(products, finish, out)``: two closures that each launch
     one of the kernel's two launches on the current stream (the dense
     products, then link, softmax and heads), and the ``AffinityOutput``
     they fill.  ``fused_affinity`` calls both; a caller may time each on
-    its own.  Raises on any input the kernel does not take."""
+    its own.  Raises on any input the kernel does not take.  With
+    ``link_bias`` the second launch is the kernel's bias instance."""
     if a.device.type != "cuda":
         raise ValueError(f"fused_affinity: unsupported device {a.device}")
     B, K, N, D = a.shape
@@ -191,6 +198,8 @@ def affinity_launches(a, b, mask_prev, mask_curr,
     _check("a", a, dev, cdt, (B, K, N, D))
     _check("mask_prev", mask_prev, dev, torch.bool, (B, N))
     _check("mask_curr", mask_curr, dev, torch.bool, (B, N))
+    if link_bias is not None:
+        _check("link_bias", link_bias, dev, torch.float32, (B, N, N))
     shapes = {"w1": (K, D, H), "b1": (K, H), "bn_mean": (K, H),
               "bn_inv": (K, H), "bn_scale": (K, H), "bn_bias": (K, H),
               "w2": (K, H, 1), "b2": (K,), "wn1": (D, hh), "wnp": (1, hh),
@@ -235,27 +244,35 @@ def affinity_launches(a, b, mask_prev, mask_curr,
         run(lib.mmmot_affinity_finish, part.data_ptr(), hs.data_ptr(),
             *masks, *(p[n] for n in ("wnp", "bn1", "wn2", "bn2", "wep", "be1",
                                      "ew2", "eb2")),
-            *(t.data_ptr() for t in out), B, K, N, hh, *tail)
+            *(t.data_ptr() for t in out),
+            None if link_bias is None else link_bias.data_ptr(), B, K, N, hh,
+            *tail)
 
     return products, finish, out
 
 
-def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor]
-                   ) -> AffinityOutput:
-    """Fused affinity for a batch of frame pairs.
+def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor],
+                   link_bias=None) -> AffinityOutput:
+    """Fused affinity for a batch of frame pairs, with an optional
+    additive ``link_bias`` [B, N, N] float32.
 
-    CUDA tensors launch the CUDA kernel (and count one launch in
-    ``fused_affinity.launches``); CPU tensors run ``affinity_plain``.
-    Raises on any input the kernel does not take.
+    CUDA tensors launch the CUDA kernel and count one launch in
+    ``fused_affinity.launches`` (the bias-free instance) or in
+    ``fused_affinity.bias_launches`` (with ``link_bias``); CPU tensors
+    run ``affinity_plain``.  Raises on any input the kernel does not take.
     """
     if a.device.type == "cpu":
-        return affinity_plain(a, b, mask_prev, mask_curr, params)
+        return affinity_plain(a, b, mask_prev, mask_curr, params, link_bias)
     products, finish, out = affinity_launches(a, b, mask_prev, mask_curr,
-                                              params)
+                                              params, link_bias)
     products()
     finish()
-    fused_affinity.launches += 1
+    if link_bias is None:
+        fused_affinity.launches += 1
+    else:
+        fused_affinity.bias_launches += 1
     return out
 
 
 fused_affinity.launches = 0
+fused_affinity.bias_launches = 0

@@ -68,11 +68,15 @@ def build(name: str) -> Path:
 
 def _kernel_label(mangled: str) -> str:
     """``products_kernel<bf16>`` for a mangled kernel template instance
-    (``...15products_kernelI13__nv_bfloat16E...``), else the name itself."""
-    m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)E", mangled)
+    (``...15products_kernelI13__nv_bfloat16E...``), ``finish_kernel<f32,
+    bias>`` for one whose bool argument is true (``...IfLb1EE...``), else
+    the name itself."""
+    m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Lb([01])E)?E",
+                  mangled)
     if m is None:
         return mangled
-    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+    bias = ",bias" if m.group(3) == "1" else ""
+    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}{bias}>"
 
 
 def ptxas_summary(log: str) -> dict:

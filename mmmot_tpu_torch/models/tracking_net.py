@@ -2,8 +2,9 @@
 ``mmmot_tpu/models/tracking_net.py::TrackingNet`` (eval forward).
 
 Module and parameter names follow the flax tree (``appear_net``,
-``point_net``, ``fusion``, ``affinity_{fused,image,lidar}``, ``new_end``,
-``det_head``), so ``compat.from_jax`` maps weights across by name.
+``point_net``, ``fusion``, ``affinity_{fused,image,lidar}`` with their
+``gnn_{r}`` rounds, ``motion``, ``new_end``, ``det_head``), so
+``compat.from_jax`` maps weights across by name.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ from torch import nn
 
 from mmmot_tpu_torch.config import ModelConfig
 from mmmot_tpu_torch.device import dtype_of, resolve_device
-from mmmot_tpu_torch.models.affinity import AffinityModule, normalize_link
+from mmmot_tpu_torch.models.affinity import (AffinityModule, MotionScore,
+                                             normalize_link)
 from mmmot_tpu_torch.models.appearance import AppearanceNet
 from mmmot_tpu_torch.models.fusion import FusionModule
 from mmmot_tpu_torch.models.layers import MLP2
@@ -44,8 +46,10 @@ class TrackingNet(nn.Module):
         self.fusion = FusionModule(cfg.fusion, cfg.appearance.out_dim,
                                    cfg.point.out_dim, dt)
         for b in BRANCHES:
-            self.add_module(f"affinity_{b}",
-                            AffinityModule(d, cfg.affinity.hidden_dim, dt))
+            self.add_module(f"affinity_{b}", AffinityModule(
+                d, cfg.affinity.hidden_dim, dt, cfg.affinity.gnn_rounds))
+        if cfg.affinity.motion_dim:
+            self.motion = MotionScore(cfg.affinity.motion_dim)
         self.new_end = NewEndHead(d, cfg.new_end.hidden_dim, dt)
         self.det_head = MLP2(d, cfg.new_end.hidden_dim, 1, dt)
         self.eval()
@@ -63,13 +67,40 @@ class TrackingNet(nn.Module):
         lidar = self.point_net(points, point_mask, det_mask)
         return self.fusion(img, lidar, det_mask)
 
-    def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
-                 ) -> AffinityOutput:
-        """The unfused module path (``TrackingNet.affinity`` of the
-        reference): branch scores summed, v2 heads, dual softmax."""
+    def gnn_refine(self, feats_prev, feats_curr, mask_prev, mask_curr):
+        """Each branch's embeddings after its ``gnn_rounds`` rounds of
+        message passing across the pair; other keys pass through."""
+        out_p, out_c = dict(feats_prev), dict(feats_curr)
+        for b in BRANCHES:
+            out_p[b], out_c[b] = getattr(self, f"affinity_{b}").refine(
+                feats_prev[b], feats_curr[b], mask_prev, mask_curr)
+        return out_p, out_c
+
+    def motion_bias(self, box_prev, box_curr, mask_prev, mask_curr):
+        """The learned motion term [.., Np, Nc] float32 (0 at invalid
+        pairs): the fused kernel takes it as its ``link_bias``."""
+        return self.motion(box_prev, box_curr, mask_prev, mask_curr)
+
+    def affinity_link(self, feats_prev, feats_curr, mask_prev, mask_curr):
+        """Raw link scores of the module path: each branch refined and
+        scored, summed, plus the motion term (from ``feats["box"]``)
+        when ``motion_dim`` > 0."""
         link = sum(getattr(self, f"affinity_{b}")(
             feats_prev[b], feats_curr[b], mask_prev, mask_curr)
             for b in BRANCHES)
+        if self.cfg.affinity.motion_dim:
+            link = link + self.motion_bias(
+                feats_prev["box"], feats_curr["box"], mask_prev,
+                mask_curr).to(link.dtype)
+        return link
+
+    def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
+                 ) -> AffinityOutput:
+        """The unfused module path (``TrackingNet.affinity`` of the
+        reference): ``affinity_link``, the v2 heads on the RAW fused
+        embeddings, dual softmax."""
+        link = self.affinity_link(feats_prev, feats_curr, mask_prev,
+                                  mask_curr)
         new, end = self.new_end(feats_prev["fused"], feats_curr["fused"],
                                 link, mask_prev, mask_curr)
         return AffinityOutput(link, normalize_link(link, mask_prev,

@@ -20,8 +20,14 @@ scored by its last det-head confidence, and filtered by that score in
 the ``thr_<t>/`` sweep (as the reference does, ``score_threshold``
 filters only the detections).
 
+``track_class="All"`` tracks every class group in one pass with the
+class gate (``assoc.class_gate``, which it requires): each window carries
+the detections' class ids, a result row is written under its
+detection's class (a coverage row under its track's), and the files are
+scored once per class (``summary_<cls>.txt``, ``hota_<cls>.txt`` for
+car, pedestrian and cyclist).
+
 Not ported, and raising ``NotImplementedError``: ``dead_sensor``,
-``track_class="All"`` (joint classes with the class gate),
 ``point_source="box3d"`` and ``packed_cache``.
 """
 
@@ -71,8 +77,6 @@ def _seq_plan(arrs, window: int) -> Dict:
 def _unsupported(data_cfg: DataConfig, dead_sensor) -> None:
     for what, bad in (
             ("dead_sensor", dead_sensor is not None),
-            ("data.track_class='All' (joint classes with the class gate)",
-             data_cfg.track_class == "All"),
             ("data.point_source='box3d'", data_cfg.point_source == "box3d"),
             ("data.packed_cache", data_cfg.packed_cache)):
         if bad:
@@ -108,7 +112,9 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
     Returns a stats dict: n_programs (distinct window shapes), n_dropped,
     total_frames, fps (frames over seconds of every window after the
     run's first, which pays the warm-up), and with ``evaluate``
-    ``metrics`` (TrackingMetrics), ``hota`` and ``per_sequence``.  Also,
+    ``metrics`` (TrackingMetrics), ``hota`` and ``per_sequence`` (with
+    ``track_class="All"``: ``metrics_by_class`` and ``hota_by_class``,
+    keyed by class, in their place).  Also,
     for measurement: ``n_windows``, ``window_s`` (seconds per window
     call, the first included), ``load_s`` (seconds the loader spent
     reading groups), ``decode_s`` (of which PNG decoding) and
@@ -121,7 +127,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
 
     ``score_sweep`` writes the result txts again under
     ``res_dir/thr_<t>/`` for each det-head score threshold t, from the
-    same tracked output, and scores them into ``stats["sweep"][t]``.
+    same tracked output, and scores them into ``stats["sweep"][t]`` (by
+    class with ``track_class="All"``).
     """
     from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
     from mmmot_tpu_torch.data.kitti_io import (read_kitti_tracking_labels,
@@ -130,6 +137,12 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
     from mmmot_tpu_torch.eval import HotaEvaluation, TrackingEvaluation
 
     _unsupported(data_cfg, dead_sensor)
+    joint = data_cfg.track_class == "All"
+    if joint and not module.class_gating:
+        raise ValueError(
+            "track_class 'All' (joint multi-class) requires "
+            "assoc.class_gate: true — without it the LP would link "
+            "detections across classes")
     crop = tuple(data_cfg.crop_size)
     P = data_cfg.point_len
     ds = KittiTrackingDataset(data_cfg, max_cloud_points=32768)
@@ -171,19 +184,22 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                            np.int32 if fill == -1 else np.float32)
                 for k, (fill, tail) in fields.items()} for _ in members]
         frames_ctd, secs_ctd = 0, 0.0
+        per_window = (("images", False), ("clouds", True),
+                      ("cloud_valid", True), ("boxes", False),
+                      ("det_mask", False)) + ((("cls_ids", False),)
+                                              if joint else ())
         for w in range(n_windows):
             t0 = time.perf_counter()
-            im, cl, cv, bx, dm = (
+            im, cl, cv, bx, dm, *dcl = (
                 torch.as_tensor(np.stack([_window(getattr(a, f), w, W,
                                                   M_g if cloud else None)
                                           for a in arrs_l]), device=dev)
-                for f, cloud in (("images", False), ("clouds", True),
-                                 ("cloud_valid", True), ("boxes", False),
-                                 ("det_mask", False)))
+                for f, cloud in per_window)
             out, state = track_sequences_from_frames_batched(
                 module, im, cl, bx, dm, proj, crop, P, cloud_valid=cv,
                 compact_capacity=capacity, extract_chunk=chunk,
-                crop_window=crop_window, state0=state, return_state=True)
+                crop_window=crop_window, state0=state, return_state=True,
+                det_cls=dcl[0] if joint else None)
             o = {k: out[k].float().cpu().numpy() if fill == 0.0
                  else out[k].cpu().numpy() for k, (fill, _) in fields.items()}
             n_dropped += int(out["n_dropped"].sum())
@@ -202,10 +218,15 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                      n_windows, secs_ctd)
         return list(zip(members, arrs_l, res)), frames_ctd, secs_ctd
 
-    cls = data_cfg.track_class.lower()
-    ev, hev = TrackingEvaluation(cls=cls), HotaEvaluation(cls=cls)
+    # Joint classes: one tracking pass, scored once per class from the
+    # same result files (the devkit evaluates one class at a time).
+    eval_classes = (("car", "pedestrian", "cyclist") if joint
+                    else (data_cfg.track_class.lower(),))
+    evs = {c: TrackingEvaluation(cls=c) for c in eval_classes}
+    hevs = {c: HotaEvaluation(cls=c) for c in eval_classes}
     sweep = tuple(score_sweep or ())
-    sweep_evs = {thr: TrackingEvaluation(cls=cls) for thr in sweep}
+    sweep_evs = {thr: {c: TrackingEvaluation(cls=c) for c in eval_classes}
+                 for thr in sweep}
     per_seq, outputs = {}, {}
     total_frames, t_total = 0, 0.0
     S_b = max(1, batch_sequences)
@@ -240,10 +261,13 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                 keep = arrs.det_mask
                 if score_threshold > 0:
                     keep = keep & (det_score >= score_threshold)
+                type_kw = (dict(obj_types=arrs.cls_ids, type_names=list(
+                    KittiTrackingDataset.CLASS_GROUPS)) if joint else {})
                 objs = tracker_output_to_objects(
                     ids, keep, arrs.boxes, scores=arrs.scores,
                     boxes3d=arrs.boxes3d, obj_type=data_cfg.track_class,
-                    frame_ids=arrs.frame_ids, has_3d=arrs.has_3d)
+                    frame_ids=arrs.frame_ids, has_3d=arrs.has_3d,
+                    **type_kw)
                 ghost_objs = []
                 if "ghost_ids" in res:
                     # Coverage rows: a track missing for at most
@@ -256,6 +280,13 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                         scores=res["ghost_scores"],
                         obj_type=data_cfg.track_class,
                         frame_ids=arrs.frame_ids)
+                    if joint:
+                        # A coverage row takes its track's class (under
+                        # the class gate a track is of one class).
+                        id2type = {o.track_id: o.obj_type for o in objs}
+                        for g in ghost_objs:
+                            g.obj_type = id2type.get(g.track_id,
+                                                     g.obj_type)
                 path = os.path.join(res_dir, f"{seq}.txt")
                 write_kitti_result(objs + ghost_objs, path)
                 if log:
@@ -276,16 +307,22 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                         scores=arrs.scores, boxes3d=arrs.boxes3d,
                         obj_type=data_cfg.track_class,
                         frame_ids=arrs.frame_ids, has_3d=arrs.has_3d)
+                        # As in the reference, the detections' rows here
+                        # carry data.track_class, also for "All" (their
+                        # classes are not passed): the sweep's files stay
+                        # byte-equal to the reference's.
                         + [g for g in ghost_objs if g.score >= thr], tpath)
                     if gt is not None:
-                        sweep_evs[thr].add_sequence(
-                            gt, read_kitti_tracking_labels(tpath),
-                            num_frames=n_frames)
+                        tt = read_kitti_tracking_labels(tpath)
+                        for c in eval_classes:
+                            sweep_evs[thr][c].add_sequence(
+                                gt, tt, num_frames=n_frames)
                 if gt is not None:
                     trk = read_kitti_tracking_labels(path)
-                    ev.add_sequence(gt, trk, num_frames=n_frames)
-                    hev.add_sequence(gt, trk, num_frames=n_frames)
-                    one = TrackingEvaluation(cls=cls)
+                    for c in eval_classes:
+                        evs[c].add_sequence(gt, trk, num_frames=n_frames)
+                        hevs[c].add_sequence(gt, trk, num_frames=n_frames)
+                    one = TrackingEvaluation(cls=eval_classes[0])
                     one.add_sequence(gt, trk, num_frames=n_frames)
                     per_seq[seq] = one.compute()
     finally:
@@ -301,16 +338,26 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
         log.warning("%d detections dropped by compaction capacity — "
                     "results are incomplete", n_dropped)
     if evaluate:
-        metrics, hota = ev.compute(), hev.compute()
-        stats.update(metrics=metrics, hota=hota, per_sequence=per_seq)
-        if sweep:
-            stats["sweep"] = {thr: e.compute()
-                              for thr, e in sweep_evs.items()}
-        with open(os.path.join(res_dir, f"summary_{cls}.txt"), "w") as fh:
-            fh.write(metrics.summary_text())
-        with open(os.path.join(res_dir, f"hota_{cls}.txt"), "w") as fh:
-            fh.write(hota.summary_text())
-        if log:
-            log.info("[%s] metrics: %s", cls, metrics.summary())
-            log.info("[%s] hota: %s", cls, hota.summary())
+        by_cls = {c: evs[c].compute() for c in eval_classes}
+        hota_by_cls = {c: hevs[c].compute() for c in eval_classes}
+        stats["per_sequence"] = per_seq
+        if joint:
+            stats.update(metrics_by_class=by_cls, hota_by_class=hota_by_cls)
+            if sweep:
+                stats["sweep"] = {thr: {c: e.compute() for c, e in d.items()}
+                                  for thr, d in sweep_evs.items()}
+        else:
+            c = eval_classes[0]
+            stats.update(metrics=by_cls[c], hota=hota_by_cls[c])
+            if sweep:
+                stats["sweep"] = {thr: d[c].compute()
+                                  for thr, d in sweep_evs.items()}
+        for c in eval_classes:
+            with open(os.path.join(res_dir, f"summary_{c}.txt"), "w") as fh:
+                fh.write(by_cls[c].summary_text())
+            with open(os.path.join(res_dir, f"hota_{c}.txt"), "w") as fh:
+                fh.write(hota_by_cls[c].summary_text())
+            if log:
+                log.info("[%s] metrics: %s", c, by_cls[c].summary())
+                log.info("[%s] hota: %s", c, hota_by_cls[c].summary())
     return stats

@@ -41,9 +41,10 @@ from mmmot_tpu_torch.ops.frustum import frustum_sample
 from mmmot_tpu_torch.ops.masking import (compact_indices, pair_mask,
                                          scatter_compact)
 from mmmot_tpu_torch.tracker.tracker import (
-    F32_FEATS, TrackerState, TrackingModule, apply_spatial_gate,
-    coverage_score, gather_slots, inherit_ids, link_velocity, matched_ages,
-    predicted_boxes, select_ghosts, stack_states)
+    F32_FEATS, TrackerState, TrackingModule, apply_class_gate,
+    apply_spatial_gate, coverage_score, gather_slots, inherit_ids,
+    link_velocity, matched_ages, predicted_boxes, select_ghosts,
+    stack_states)
 
 
 def _chunked(fn, args, capacity: int, chunk: Optional[int]):
@@ -113,7 +114,10 @@ def _scan_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
       need in one or two batched fused-kernel calls with optimistic
       masks, then a loop over the frames for the mask-dependent rest;
     * the sequential scan: ``step_from_feats`` frame by frame, the
-      equality oracle of the two above.
+      equality oracle of the two above, and the strategy whenever the
+      model has GNN rounds and decisions feed the state (the look-alike
+      stack): each frame runs the GNN rounds, the motion term and one
+      fused-kernel call over its pairs.
 
     The frames are a Python loop vectorised over S: each frame's LP is
     one batched auction over the S sequences.
@@ -192,6 +196,9 @@ def _parallel_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
         if module.spatial_gating:
             link = apply_spatial_gate(link, flat(prev_feats["box"]),
                                       flat(feats["box"]), cfg)
+        if module.class_gating:
+            link = apply_class_gate(link, flat(prev_feats["cls"])[..., 0],
+                                    flat(feats["cls"])[..., 0])
         new, end = aff.new, aff.end
         if not cfg.raw_new_end:
             new, end = sigmoid(new), sigmoid(end)
@@ -234,11 +241,15 @@ def _hybrid_track(module: TrackingModule, feats, det_mask, state0):
     for t in range(T):
         dm = det_mask[:, t]
         link = link_all[:, t] * pair_mask(mask, dm).to(link_all.dtype)
+        cls = {}
+        if module.class_gating:
+            cls = dict(cls_prev=prev_feats["cls"][:, t, :, 0],
+                       cls_curr=feats["cls"][:, t, :, 0])
         dec = module.frame_decisions(
             link, prev_feats["fused"][:, t], feats["fused"][:, t], mask,
             dm, dl_prev[:, t], dl_all[:, t],
             None if box_prev is None else box_prev[:, t],
-            None if box_curr is None else box_curr[:, t])
+            None if box_curr is None else box_curr[:, t], **cls)
         mask = dm & dec.keep_curr
         ages = matched_ages(ages, dec.match_curr, mask)
         ids, next_id = inherit_ids(ids, next_id, dec.match_curr, dec.is_new,
@@ -262,8 +273,9 @@ def _revival_track(module: TrackingModule, feats, det_mask, state0):
         entry[t]   = link(state0.feats, feats[t]), t < min(K+1, T)
 
     (the entry band holds the slots carried in from the previous
-    window, live and ghost).  Raw link scores are exactly 0 at invalid
-    pairs and the masks only shrink, so the K+1 bands run as ONE
+    window, live and ghost; with the motion term, each slot's link to a
+    detection reads its frozen box).  Raw link scores are exactly 0 at
+    invalid pairs and the masks only shrink, so the K+1 bands run as ONE
     fused-kernel call of S*(K+1)*T frame pairs at N slots and the entry
     band as a second call of S*min(K+1, T) pairs at M = 2N slots.  The
     loop carries each slot's PROVENANCE (an index into the window's
@@ -280,13 +292,14 @@ def _revival_track(module: TrackingModule, feats, det_mask, state0):
     coverage = module.ghost_coverage
 
     # ---- batched link scores (optimistic masks) --------------------------
+    link_keys = BRANCHES + (("box",) if module.motion_on else ())
     D_run = min(Dd, T - 1)              # bands d >= T pair no frame
     bands = torch.zeros((S, T, Dd, N, N), dtype=cdt, device=dev)
     if D_run > 0:
         def shifted(x, d):
             return F.pad(x[:, :T - d], (0, 0) * (x.dim() - 2) + (d, 0))
 
-        branch = {k: feats[k] for k in BRANCHES}
+        branch = {k: feats[k] for k in link_keys}
         fp = {k: torch.stack([shifted(v, d) for d in range(1, D_run + 1)],
                              1).flatten(0, 2) for k, v in branch.items()}
         fc = {k: v[:, None].expand((S, D_run) + v.shape[1:]).flatten(0, 2)
@@ -298,9 +311,9 @@ def _revival_track(module: TrackingModule, feats, det_mask, state0):
             S, D_run, T, N, N).transpose(1, 2)
     E = min(Dd, T)
     f0 = {k: state0.feats[k][:, None].expand((S, E) + state0.feats[k].shape[1:])
-          .flatten(0, 1) for k in BRANCHES}
+          .flatten(0, 1) for k in link_keys}
     fcE = {k: F.pad(feats[k][:, :E], (0, 0, 0, G)).flatten(0, 1)
-           for k in BRANCHES}
+           for k in link_keys}
     entry = module.affinity_link(
         f0, fcE, state0.mask[:, None].expand(S, E, M).flatten(0, 1),
         F.pad(det_mask[:, :E], (0, G)).flatten(0, 1)
@@ -321,6 +334,8 @@ def _revival_track(module: TrackingModule, feats, det_mask, state0):
         banks["box"] = flat(feats["box"], state0.feats["box"])
     if coverage:
         banks["score"] = flat(feats["detsc"], state0.feats["detsc"])[..., 0]
+    if module.class_gating:
+        banks["cls"] = flat(feats["cls"], state0.feats["cls"])[..., 0]
 
     pool = {"mask": state0.mask, "ids": state0.ids, "ages": state0.ages,
             "next_id": state0.next_id, "missed": state0.missed,
@@ -349,10 +364,14 @@ def _revival_track(module: TrackingModule, feats, det_mask, state0):
         if cfg.use_det_scores:
             dlp = gather_slots(banks["detlogit"], src)
             dlc = F.pad(dl_all[:, t], (0, G))
+        cls = {}
+        if module.class_gating:
+            cls = dict(cls_prev=gather_slots(banks["cls"], src),
+                       cls_curr=F.pad(feats["cls"][:, t, :, 0], (0, G)))
         dec = module.frame_decisions(
             link, gather_slots(banks["fused"], src),
             F.pad(feats["fused"][:, t], (0, 0, 0, G)), pool["mask"], dm,
-            dlp, dlc, gate_prev, box_c)
+            dlp, dlc, gate_prev, box_c, **cls)
         pool, out = advance_pool(pool, dec, dm, box_c, banks, t, N, K, cfg,
                                  coverage)
         outs.append(out)
@@ -426,13 +445,15 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                            det_mask, proj, crop_size: Tuple[int, int],
                            points_per_det: int, compact_capacity: int,
                            extract_chunk: Optional[int] = None,
-                           crop_window: int = 512, cloud_valid=None):
+                           crop_window: int = 512, cloud_valid=None,
+                           det_cls=None):
     """Compact-first feature extraction over S sequences of raw frames.
 
     Arguments as for :func:`track_sequences_from_frames_batched`, as
     tensors on ``module``'s device.  Returns (feats {branch: [S, T, N,
-    D]}, and ``"box"`` [S, T, N, 4] f32 when ``module.carry_boxes``;
-    kept [S, T, N] bool: the valid slots that fit in the capacity).
+    D]}, and ``"box"`` [S, T, N, 4] f32 when ``module.carry_boxes``,
+    ``"cls"`` [S, T, N, 1] f32 when ``module.class_gating``; kept
+    [S, T, N] bool: the valid slots that fit in the capacity).
     """
     det_mask = det_mask.bool()
     boxes, proj = boxes.float(), proj.float()
@@ -472,6 +493,11 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
         kept[slot] = taken
     if module.carry_boxes:
         feats["box"] = boxes
+    if module.class_gating:
+        if det_cls is None:
+            raise ValueError("class_gate needs det_cls, the class-group id "
+                             "of every detection slot")
+        feats["cls"] = det_cls.float()[..., None]
     return feats, kept.reshape(S, T, N)
 
 
@@ -479,13 +505,14 @@ def extract_frames(module: TrackingModule, images, clouds, boxes, det_mask,
                    proj, crop_size: Tuple[int, int], points_per_det: int,
                    compact_capacity: Optional[int] = None,
                    extract_chunk: Optional[int] = None,
-                   crop_window: int = 512, cloud_valid=None):
+                   crop_window: int = 512, cloud_valid=None, det_cls=None):
     """:func:`extract_frames_batched` for one sequence (no S axis)."""
     feats, kept = extract_frames_batched(
         module, images[None], clouds[None], boxes[None], det_mask[None],
         proj, crop_size, points_per_det, _require_capacity(compact_capacity),
         extract_chunk, crop_window,
-        None if cloud_valid is None else cloud_valid[None])
+        None if cloud_valid is None else cloud_valid[None],
+        None if det_cls is None else det_cls[None])
     return {k: v[0] for k, v in feats.items()}, kept[0]
 
 
@@ -494,17 +521,19 @@ def track_sequences_from_frames_batched(
         crop_size: Tuple[int, int], points_per_det: int,
         cloud_valid=None, compact_capacity: Optional[int] = None,
         extract_chunk: Optional[int] = None, crop_window: int = 512,
-        state0: Optional[TrackerState] = None, return_state: bool = False):
+        state0: Optional[TrackerState] = None, return_state: bool = False,
+        det_cls=None):
     """Track S sequences from raw frames on ``module``'s device.
 
     images [S, T, H, W, 3] uint8 (or float pixels), clouds [S, T, M, C],
     boxes [S, T, N, 4] (l, t, r, b pixels), det_mask [S, T, N] bool, proj
-    [S, 3, 4] (or one [3, 4] for all), cloud_valid [S, T, M] bool or None;
-    numpy arrays or tensors.  ``compact_capacity`` bounds the detections
-    extracted per sequence (``None``, the reference's per-slot branch,
-    raises); valid detections past it are dropped and counted in
-    ``n_dropped``.  ``state0`` is a state with a leading [S] axis (default:
-    empty).  Returns {"ids": [S, T, N] int32 (-1 at empty slots),
+    [S, 3, 4] (or one [3, 4] for all), cloud_valid [S, T, M] bool or None,
+    det_cls [S, T, N] class-group ids (read with the class gate, which
+    needs them); numpy arrays or tensors.  ``compact_capacity`` bounds
+    the detections extracted per sequence (``None``, the reference's
+    per-slot branch, raises); valid detections past it are dropped and
+    counted in ``n_dropped``.  ``state0`` is a state with a leading [S]
+    axis (default: empty).  Returns {"ids": [S, T, N] int32 (-1 at empty slots),
     "det_score": [S, T, N], "n_dropped": [S]} and, with ghost coverage,
     "ghost_ids" [S, T, N] (-1 where no row), "ghost_boxes" [S, T, N, 4]
     and "ghost_scores" [S, T, N]; the final state too with
@@ -515,14 +544,14 @@ def track_sequences_from_frames_batched(
     images, clouds, boxes, det_mask, proj = (
         torch.as_tensor(x, device=dev)
         for x in (images, clouds, boxes, det_mask, proj))
-    if cloud_valid is not None:
-        cloud_valid = torch.as_tensor(cloud_valid, device=dev)
+    cloud_valid, det_cls = (None if x is None else torch.as_tensor(
+        x, device=dev) for x in (cloud_valid, det_cls))
     det_mask = det_mask.bool()
     S, _, N = det_mask.shape
     feats, kept = extract_frames_batched(
         module, images, clouds, boxes, det_mask, proj, crop_size,
         points_per_det, compact_capacity, extract_chunk, crop_window,
-        cloud_valid)
+        cloud_valid, det_cls)
     out, final = _scan_track(module, feats, kept, state0)
     out["n_dropped"] = (det_mask.sum((1, 2)) - kept.sum((1, 2))).to(
         torch.int32)
@@ -536,15 +565,16 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
                                extract_chunk: Optional[int] = None,
                                crop_window: int = 512,
                                state0: Optional[TrackerState] = None,
-                               return_state: bool = False):
+                               return_state: bool = False, det_cls=None):
     """Track one sequence from raw frames on ``module``'s device.
 
     images [T, H, W, 3] uint8 (or float pixels), clouds [T, M, C], boxes
     [T, N, 4] (l, t, r, b pixels), det_mask [T, N] bool, proj [3, 4],
-    cloud_valid [T, M] bool or None (padded cloud entries); numpy arrays
-    or tensors.  ``compact_capacity`` bounds the detections extracted
-    (``None``, the reference's per-slot branch, raises); valid detections
-    past it are dropped and counted in ``n_dropped``.  ``state0`` continues
+    cloud_valid [T, M] bool or None (padded cloud entries), det_cls [T, N]
+    class-group ids (read with the class gate); numpy arrays or tensors.
+    ``compact_capacity`` bounds the detections extracted (``None``, the
+    reference's per-slot branch, raises); valid detections past it are
+    dropped and counted in ``n_dropped``.  ``state0`` continues
     a longer sequence from the state an earlier window returned.  Returns
     {"ids": [T, N] int32 (-1 at empty slots), "det_score": [T, N],
     "n_dropped": 0-dim int} (and the ghost outputs of
@@ -563,7 +593,7 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
         torch.as_tensor(proj, device=dev), crop_size, points_per_det,
         cloud_valid=one(cloud_valid), compact_capacity=compact_capacity,
         extract_chunk=extract_chunk, crop_window=crop_window, state0=state0,
-        return_state=True)
+        return_state=True, det_cls=one(det_cls))
     out = {k: v[0] for k, v in out.items()}
     if not return_state:
         return out

@@ -1,14 +1,17 @@
 """Tracker state, the association gates, and the module that binds the
 network, the fused affinity and the association: port of
 ``mmmot_tpu/tracker/tracker.py`` (``TrackerState``, ``init_state``,
-``apply_spatial_gate``, ``assign_ids``, ``TrackingModule`` with
-``step_from_feats`` and ``_revival_state``).
+``apply_spatial_gate``, ``apply_class_gate``, ``assign_ids``,
+``TrackingModule`` with ``step_from_feats`` and ``_revival_state``).
 
 The flagship path (``TrackingModule(net)``) runs the parallel pre-solve
 of ``tracker/sequence.py``.  An ``AssocConfig`` adds the quality stack:
 y_det detection rejection in the LP, the spatial IoU gate and prior, the
-revival ghost pool with its coverage boxes and ``gate_predict``.  Not
-ported: the class gate (joint classes) and learned motion.
+revival ghost pool with its coverage boxes and ``gate_predict``, and the
+class gate for joint classes.  The model's ``gnn_rounds`` (message
+passing before the fused kernel) and ``motion_dim`` (the learned motion
+term, the kernel's ``link_bias``) make the look-alike stack; with GNN
+rounds the strategy is the sequential scan, as in the reference.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ from mmmot_tpu_torch.ops.boxes import pairwise_iou
 
 # Per-slot feats that stay float32 whatever the compute dtype: bf16
 # rounds KITTI pixel coordinates (~1e3) by up to 4 px; "detsc" is the
-# frozen coverage score, compared against coverage_min_score.
-F32_FEATS = ("box", "boxvel", "detsc")
+# frozen coverage score, compared against coverage_min_score; "cls" the
+# class-group id.
+F32_FEATS = ("box", "boxvel", "detsc", "cls")
 
 
 @dataclass
@@ -110,6 +114,15 @@ def apply_spatial_gate(link, box_prev, box_curr, cfg: AssocConfig):
         link = torch.where(iou >= cfg.iou_gate, link,
                            torch.tensor(NEG, dtype=dt, device=link.device))
     return link
+
+
+def apply_class_gate(link, cls_prev, cls_curr):
+    """Joint classes: links between detections of different class groups
+    (``cls_prev`` [..., Np], ``cls_curr`` [..., Nc]) get the assoc ``NEG``
+    sentinel in the link's dtype."""
+    same = cls_prev[..., :, None] == cls_curr[..., None, :]
+    return torch.where(same, link, torch.tensor(NEG, dtype=link.dtype,
+                                                device=link.device))
 
 
 def gather_slots(x, idx):
@@ -191,8 +204,8 @@ class TrackingModule:
     ``parallel_assoc`` and ``hybrid_presolve`` pick the execution
     strategy of ``tracker/sequence.py`` as the reference does (None =
     auto): the parallel pre-solve when decisions do not feed the state,
-    else the hybrid pre-solves, else the sequential ``step_from_feats``
-    scan, their equality oracle.
+    else the hybrid pre-solves (sound only without GNN rounds), else the
+    sequential ``step_from_feats`` scan, their equality oracle.
     """
 
     def __init__(self, net: TrackingNet,
@@ -203,10 +216,6 @@ class TrackingModule:
         self.parity = net.compute_dtype == torch.float32
         self._params = None
         cfg = self.assoc_cfg = assoc_cfg or AssocConfig()
-        if cfg.class_gate:
-            raise NotImplementedError(
-                "assoc.class_gate (joint classes) is not ported to "
-                "mmmot_tpu_torch yet")
         # The parallel pre-solve batches every frame pair's LP, which is
         # sound only while decisions never feed the next pair: y_det
         # rejection shrinks the carried mask and revival keeps ghosts.
@@ -225,10 +234,18 @@ class TrackingModule:
                              "it needs revival_window > 0")
         self.parallel_assoc = parallel_assoc
         # The hybrid pre-solves batch the mask-independent link scores
-        # and keep the mask-dependent rest in the scan.  The port has no
-        # GNN refine, so they are always sound.
-        self.hybrid_presolve = (True if hybrid_presolve is None
-                                else hybrid_presolve)
+        # and keep the mask-dependent rest in the scan.  Message passing
+        # attends across a frame's detections, which makes the features
+        # themselves mask-dependent: with GNN rounds they are unsound.
+        gnn = net.cfg.affinity.gnn_rounds
+        if hybrid_presolve is None:
+            hybrid_presolve = gnn == 0
+        elif hybrid_presolve and gnn:
+            raise ValueError(
+                "hybrid_presolve is unsound with gnn_rounds > 0 "
+                "(message passing makes features mask-dependent); use "
+                "hybrid_presolve=None/False")
+        self.hybrid_presolve = hybrid_presolve
 
     @property
     def device(self) -> torch.device:
@@ -248,10 +265,23 @@ class TrackingModule:
                     and self.assoc_cfg.revival_window)
 
     @property
+    def motion_on(self) -> bool:
+        """Whether the learned motion term is configured (``motion_dim``
+        > 0): the link scores then include it."""
+        return self.net.cfg.affinity.motion_dim > 0
+
+    @property
     def carry_boxes(self) -> bool:
         """Whether the pipeline carries per-detection boxes: the spatial
-        gate reads them and ghost coverage extrapolates them."""
-        return self.spatial_gating or self.ghost_coverage
+        gate reads them, ghost coverage extrapolates them and the motion
+        term scores them."""
+        return self.spatial_gating or self.ghost_coverage or self.motion_on
+
+    @property
+    def class_gating(self) -> bool:
+        """Whether the class gate is on (the pipeline then carries each
+        detection's class-group id, ``feats["cls"]``)."""
+        return self.assoc_cfg.class_gate
 
     @property
     def carry_det_logits(self) -> bool:
@@ -293,23 +323,59 @@ class TrackingModule:
             dims["detsc"] = 1
         if self.carry_det_logits:
             dims["detlogit"] = 1
+        if self.class_gating:
+            dims["cls"] = 1
         return self.make_state0(dims, num_slots)
 
     def extract(self, crops, points, point_mask, det_mask):
         with torch.inference_mode(), f32_parity(self.parity):
             return self.net.extract(crops, points, point_mask, det_mask)
 
-    def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
-                 ) -> AffinityOutput:
-        """Batched frame pairs: feats {branch: [B, N, D]}, masks [B, N]."""
+    def kernel_affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
+                        ) -> AffinityOutput:
+        """The fused kernel's outputs for batched frame pairs: feats
+        {branch: [B, N, D], and "box" [B, N, 4] with motion}, masks
+        [B, N].  The branch embeddings are refined first (GNN rounds,
+        with these masks) and the motion term enters as the kernel's
+        ``link_bias``; its new/end come from the refined rows."""
+        net = self.net
         with torch.inference_mode(), f32_parity(self.parity):
-            cdt = self.net.compute_dtype
+            if net.cfg.affinity.gnn_rounds:
+                feats_prev, feats_curr = net.gnn_refine(
+                    feats_prev, feats_curr, mask_prev, mask_curr)
+            cdt = net.compute_dtype
             a = torch.stack([feats_prev[b].to(cdt) for b in BRANCHES], dim=1)
             b = torch.stack([feats_curr[b].to(cdt) for b in BRANCHES], dim=1)
+            bias = None
+            if self.motion_on:
+                if "box" not in feats_prev or "box" not in feats_curr:
+                    raise ValueError(
+                        "affinity.motion_dim > 0 needs per-detection boxes: "
+                        "carry them as feats['box'] (the raw-frames "
+                        "pipeline does)")
+                # float32 with TF32 off, whatever the compute dtype.
+                with f32_parity():
+                    bias = net.motion_bias(feats_prev["box"],
+                                           feats_curr["box"], mask_prev,
+                                           mask_curr).contiguous()
             return fused_affinity(a.contiguous(), b.contiguous(),
                                   mask_prev.contiguous(),
                                   mask_curr.contiguous(),
-                                  self.affinity_params())
+                                  self.affinity_params(), bias)
+
+    def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
+                 ) -> AffinityOutput:
+        """Batched frame pairs: feats {branch: [B, N, D]}, masks [B, N]
+        -> link, link_norm, new, end.  With GNN rounds the new/end heads
+        read the RAW fused embeddings (as the reference's module path
+        does), so they are recomputed from the kernel's link."""
+        out = self.kernel_affinity(feats_prev, feats_curr, mask_prev,
+                                   mask_curr)
+        if self.net.cfg.affinity.gnn_rounds:
+            new, end = self.new_end(feats_prev["fused"], feats_curr["fused"],
+                                    out.link, mask_prev, mask_curr)
+            out = out._replace(new=new, end=end)
+        return out
 
     def affinity_link(self, feats_prev, feats_curr, mask_prev, mask_curr):
         """Raw link scores [B, N, N] only (exactly 0 at invalid pairs), for
@@ -317,8 +383,8 @@ class TrackingModule:
         ``link`` output on the GPU, the plain version's on the CPU.  The
         normalisation and the new/end heads are derived from it with the
         exact carried masks."""
-        return self.affinity(feats_prev, feats_curr, mask_prev,
-                             mask_curr).link
+        return self.kernel_affinity(feats_prev, feats_curr, mask_prev,
+                                    mask_curr).link
 
     def det_score(self, fused, det_mask):
         """Det-head logits [..., N], 0 at invalid slots."""
@@ -333,18 +399,23 @@ class TrackingModule:
 
     def frame_decisions(self, link, fp_fused, fc_fused, mask_prev,
                         mask_curr, det_prev, det_curr, box_prev=None,
-                        box_curr=None) -> Decisions:
+                        box_curr=None, cls_prev=None,
+                        cls_curr=None) -> Decisions:
         """One frame's association from its raw link [S, Mp, Mc]: the
-        normalisation, the spatial gate, the new/end heads and the LP.
-        ``det_prev``/``det_curr`` are the det-head logits of the two sides
-        (read only with ``use_det_scores``).  Shared by the sequential
-        scan and the hybrid pre-solves."""
+        normalisation, the spatial and class gates, the new/end heads and
+        the LP.  ``det_prev``/``det_curr`` are the det-head logits of the
+        two sides (read only with ``use_det_scores``), ``cls_prev``/
+        ``cls_curr`` their class-group ids [S, M] (read only with the
+        class gate).  Shared by the sequential scan and the hybrid
+        pre-solves."""
         cfg = self.assoc_cfg
         with torch.inference_mode():
             link_norm = normalize_link(link, mask_prev, mask_curr)
             if self.spatial_gating:
                 link_norm = apply_spatial_gate(link_norm, box_prev,
                                                box_curr, cfg)
+            if self.class_gating:
+                link_norm = apply_class_gate(link_norm, cls_prev, cls_curr)
             new, end = self.new_end(fp_fused, fc_fused, link, mask_prev,
                                     mask_curr)
             if not cfg.raw_new_end:
@@ -370,12 +441,13 @@ class TrackingModule:
         id.  Per-detection outputs (``ids``, ``det_score``) have the N
         input slots; ``decisions`` spans the M padded slots.
 
-        The raw link comes from the fused kernel and the rest from
-        ``frame_decisions``, as in the pre-solves, so the scan is their
-        exact oracle on every device: the reference's XLA-path scan
-        computes the same function (its Pallas-path scan takes the
-        kernel's own normalisation and heads, which round differently
-        in bfloat16).
+        The raw link comes from the fused kernel (after the GNN rounds,
+        over this frame's masks, and with the motion term as its bias)
+        and the rest from ``frame_decisions``, as in the pre-solves, so
+        the scan is their exact oracle on every device: the reference's
+        XLA-path scan computes the same function (its Pallas-path scan
+        takes the kernel's own normalisation and heads, which round
+        differently in bfloat16).
         """
         cfg = self.assoc_cfg
         K = cfg.revival_window
@@ -388,9 +460,13 @@ class TrackingModule:
                 det_mask = torch.nn.functional.pad(det_mask, (0, pad))
             if self.carry_boxes and "box" not in feats:
                 raise ValueError(
-                    "the spatial gate and ghost coverage need per-detection "
-                    "boxes: carry them as feats['box'] (the raw-frames "
-                    "pipeline does)")
+                    "the spatial gate, ghost coverage and the motion term "
+                    "need per-detection boxes: carry them as feats['box'] "
+                    "(the raw-frames pipeline does)")
+            if self.class_gating and "cls" not in feats:
+                raise ValueError(
+                    "class_gate needs per-detection class ids: carry them "
+                    "as feats['cls'] (the KITTI runner does, from det_cls)")
             link = self.affinity_link(state.feats, feats, state.mask,
                                       det_mask)
             if "detlogit" in feats:
@@ -412,9 +488,14 @@ class TrackingModule:
                 # m + 1 frames behind the current frame.
                 gate_prev = predicted_boxes(gate_prev, state.missed + 1,
                                             state.feats["boxvel"])
+            cls = {}
+            if self.class_gating:
+                cls = dict(cls_prev=state.feats["cls"][..., 0],
+                           cls_curr=feats["cls"][..., 0])
             dec = self.frame_decisions(
                 link, state.feats["fused"], feats["fused"], state.mask,
-                det_mask, dl_prev, dl_curr, gate_prev, feats.get("box"))
+                det_mask, dl_prev, dl_curr, gate_prev, feats.get("box"),
+                **cls)
             kept = det_mask & dec.keep_curr if cfg.use_det_scores \
                 else det_mask
             ids_curr, next_id = assign_ids(state, dec, det_mask)

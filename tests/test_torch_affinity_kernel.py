@@ -11,6 +11,7 @@ import torch
 
 from mmmot_tpu.kernels import build_affinity_params as j_build_params
 from mmmot_tpu.kernels import pallas_affinity
+from mmmot_tpu.models.affinity import normalize_link as j_normalize_link
 from mmmot_tpu_torch.config import full_mmmot, tiny_debug
 from mmmot_tpu_torch.kernels import build as kbuild
 from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
@@ -51,6 +52,9 @@ CASES = {
                           [(1, 3, 5, 7), (0, 2, 4, 6)]),
     "holed_last_slot": (8, [(7,), 5], [(7,), (7,)]),
     "holed_n13_full_row": (13, [13, 13], [(0, 3, 4, 9, 12), (1, 6, 7)]),
+    # The additive link bias (the learned motion term), with an empty
+    # frame and holes: added before the mask, the softmax and the pools.
+    "link_bias": (8, [5, 0, (0, 3, 6)], [8, 4, (1, 3, 7)]),
 }
 
 def test_params_match_reference(shared):
@@ -67,15 +71,35 @@ def test_plain_matches_pallas_interpret_and_module_path(shared, case):
     jcfg, jnet, variables, net = shared
     N, n_prev, n_curr = CASES[case]
     a, b, mp, mc = pair_batch(len(case), len(n_prev), N, n_prev, n_curr)
-    got = affinity_plain(*map(torch.from_numpy, (a, b, mp, mc)),
-                         build_affinity_params(net, torch.float32))
+    bias = None
+    if case == "link_bias":
+        bias = np.random.default_rng(5).normal(
+            0, 2, (len(n_prev), N, N)).astype(np.float32)
+    params = build_affinity_params(net, torch.float32)
+    got = affinity_plain(*map(torch.from_numpy, (a, b, mp, mc)), params,
+                         None if bias is None else torch.from_numpy(bias))
     ref = pallas_affinity(*map(jnp.asarray, (a, b, mp, mc)),
                           j_build_params(variables, jcfg, BRANCHES,
-                                         jnp.float32), interpret=True)
+                                         jnp.float32), interpret=True,
+                          link_bias=None if bias is None
+                          else jnp.asarray(bias))
     fp = {k: jnp.asarray(a[:, i]) for i, k in enumerate(BRANCHES)}
     fc = {k: jnp.asarray(b[:, i]) for i, k in enumerate(BRANCHES)}
     mod = jnet.apply(variables, fp, fc, jnp.asarray(mp), jnp.asarray(mc),
                      method=jnet.affinity)
+    if bias is not None:
+        # The module path with the term added to its raw link, as
+        # TrackingNet.affinity_link adds the motion term.
+        jm, jc = jnp.asarray(mp), jnp.asarray(mc)
+        link = mod.link + jnp.asarray(bias) * (jm[:, :, None] & jc[:, None])
+        new, end = jnet.apply(variables, fp["fused"], fc["fused"], link, jm,
+                              jc, method=lambda m, *x: m.new_end(
+                                  *x, train=False))
+        mod = mod._replace(link=link, link_norm=j_normalize_link(link, jm, jc),
+                           new=new, end=end)
+        unbiased = affinity_plain(*map(torch.from_numpy, (a, b, mp, mc)),
+                                  params)
+        assert (got.link - unbiased.link).abs().max() > 1e-4
     for i, k in enumerate(("link", "link_norm", "new", "end")):
         assert_close(getattr(got, k), ref[i], err_msg=f"{k} vs pallas")
         assert_close(getattr(got, k), getattr(mod, k), err_msg=f"{k} vs xla")
@@ -138,8 +162,9 @@ def test_ptxas_and_sass_summaries():
     ns = "_ZN44_GLOBAL__N__773f31a4_11_affinity_cu_557b72dc"
     products = (f"{ns}15products_kernelI13__nv_bfloat16EEvPKT_S4_PKhS6_S4_"
                 "S4_PKfS8_S8_S8_S4_S8_S4_S4_PfS9_iiiii")
-    finish = (f"{ns}13finish_kernelIfEEvPKfS2_PKhS4_S2_S2_PKT_S2_S2_S2_S7_"
-              "S2_PS5_S8_S8_S8_iii")
+    finish = (f"{ns}13finish_kernelIfLb0EEvPKfS2_PKhS4_S2_S2_PKT_S2_S2_S2_"
+              "S7_S2_PS5_S8_S8_S8_S2_iii")
+    finish_bias = finish.replace("IfLb0EE", "I13__nv_bfloat16Lb1EE")
     log = (f"ptxas info    : Compiling entry function '{products}' for "
            "'sm_90a'\n"
            f"ptxas info    : Function properties for {products}\n"
@@ -150,12 +175,17 @@ def test_ptxas_and_sass_summaries():
            f"ptxas info    : Compiling entry function '{finish}' for "
            "'sm_90a'\n"
            "ptxas info    : Used 48 registers, used 1 barriers, 34560 bytes "
+           "smem\n"
+           f"ptxas info    : Compiling entry function '{finish_bias}' for "
+           "'sm_90a'\n"
+           "ptxas info    : Used 50 registers, used 1 barriers, 34560 bytes "
            "smem\n")
     assert kbuild.ptxas_summary(log) == {
         "products_kernel<bf16>": dict(stack=48, spill_stores=40,
                                       spill_loads=40, registers=128,
                                       smem=5504),
-        "finish_kernel<f32>": dict(registers=48, smem=34560)}
+        "finish_kernel<f32>": dict(registers=48, smem=34560),
+        "finish_kernel<bf16,bias>": dict(registers=50, smem=34560)}
     sass = (f"\t\tFunction : {products}\n"
             "        /*0450*/                   HMMA.16816.F32.BF16 R24, R4, "
             "R20, R24 ;   /* 0x000000140418723c */\n"

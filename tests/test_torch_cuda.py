@@ -75,6 +75,40 @@ def test_kernel_matches_plain(gpu, dtype):
         assert (got.link[~pm] == 0).all()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_with_link_bias_matches_plain(gpu, dtype):
+    """The bias instance (``link_bias``, counted in ``bias_launches``)
+    against the plain version; the bias moves the link and masked links
+    stay exactly 0."""
+    dt = getattr(torch, dtype)
+    net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
+    params = build_affinity_params(net, dt)
+    gen = torch.Generator(device=gpu).manual_seed(1)
+    for N, n_prev, n_curr in ((8, [5, 0, 8], [7, 3, (1, 4)]),
+                              (64, [64, 40], [17, (0, 9, 63)])):
+        B = len(n_prev)
+        a, b = (torch.randn((B, 3, N, 64), generator=gen, device=gpu).to(dt)
+                for _ in range(2))
+        bias = 2 * torch.randn((B, N, N), generator=gen, device=gpu)
+        mp, mc = masks(N, n_prev, gpu), masks(N, n_curr, gpu)
+        before = (fused_affinity.launches, fused_affinity.bias_launches)
+        with f32_parity():
+            got = fused_affinity(a, b, mp, mc, params, bias)
+            want = affinity_plain(a, b, mp, mc, params, bias)
+            plain = fused_affinity(a, b, mp, mc, params)
+        torch.cuda.synchronize()
+        assert (fused_affinity.launches, fused_affinity.bias_launches) == (
+            before[0] + 1, before[1] + 1)
+        tol = 1e-4 if dtype == "float32" else 2.0 ** -5
+        for name, x, y in zip(got._fields, got, want):
+            scale = max(1.0, y.float().abs().max().item())
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= tol * scale, (N, name, err)
+        pm = mp[:, :, None] & mc[:, None, :]
+        assert (got.link[~pm] == 0).all()
+        assert (got.link.float() - plain.link.float()).abs().max() > 1e-2
+
+
 def test_tiny_tracking_cpu_equals_gpu(gpu):
     cfg = tiny_debug()
     gen = torch.Generator().manual_seed(3)

@@ -62,7 +62,9 @@ def inputs(seed=0, lead=(2, N)):
     ("tiny_debug", "experiments/tiny_debug/config.yaml"),
     ("full_mmmot", "experiments/full_mmmot/config.yaml"),
     ("full_mmmot_ydet", "experiments/full_mmmot_ydet/config.yaml"),
-    ("full_mmmot_noisy", "experiments/full_mmmot_noisy/config.yaml")])
+    ("full_mmmot_noisy", "experiments/full_mmmot_noisy/config.yaml"),
+    ("full_mmmot_lookalike",
+     "experiments/full_mmmot_lookalike/config.yaml")])
 def test_presets_match_yaml(name, yaml_path):
     """The Python presets carry the YAML values of every field they have."""
     import mmmot_tpu_torch.config as presets

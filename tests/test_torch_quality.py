@@ -241,14 +241,14 @@ def test_assoc_config_rejects_what_reference_rejects(kw):
 
 
 def test_assoc_config_unported_parts_raise(quality_models):
-    """Solvers other than the auction and the class gate are not ported:
-    they raise rather than run something else."""
+    """Solvers other than the auction are not ported: they raise rather
+    than run something else.  The class gate is ported
+    (tests/test_torch_lookalike.py)."""
     _, _, net = quality_models
     for solver in ("sinkhorn", "greedy", "ilp"):
         with pytest.raises(NotImplementedError, match="Queue 1"):
             AssocConfig(solver=solver)
-    with pytest.raises(NotImplementedError, match="class_gate"):
-        TrackingModule(net, AssocConfig(class_gate=True))
+    assert TrackingModule(net, AssocConfig(class_gate=True)).class_gating
     with pytest.raises(ValueError, match="unsound"):
         TrackingModule(net, AssocConfig(**NOISY), parallel_assoc=True)
     with pytest.raises(ValueError, match="needs revival_window"):

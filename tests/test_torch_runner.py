@@ -193,11 +193,16 @@ def test_stack_states_round_trip(models):
     (None, None, "camera")])
 def test_runner_unported_options_raise(models, tree, tmp_path, field, value,
                                        arg):
+    """Unported options raise ``NotImplementedError``; ``track_class="All"``
+    is ported and, as in the reference, raises ``ValueError`` without the
+    class gate it needs (tests/test_torch_lookalike.py runs it)."""
     _, _, net = models
     _, td = data_cfgs(tree)
     if field:
         td = dataclasses.replace(td, **{field: value})
-    with pytest.raises(NotImplementedError):
+    err, match = ((ValueError, "class_gate") if value == "All"
+                  else (NotImplementedError, "not ported"))
+    with pytest.raises(err, match=match):
         track_kitti_sequences(TrackingModule(net), td, str(tmp_path),
                               dead_sensor=arg)
 
