@@ -2,7 +2,8 @@
 """Smoke check of the PyTorch/CUDA port (``mmmot_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py            # the check
-    python3 chip_smoke.py --profile  # also profile one main-path pass:
+    python3 chip_smoke.py --profile  # also profile one main-path pass
+                                     # and one full-width training step:
                                      # top CUDA kernels, and the device's
                                      # busy time over that pass's wall
 
@@ -84,8 +85,31 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    with its stages timed (extraction, GNN rounds, motion term, kernel,
    scan and its auction, ghost pool, frame step) and the auction's
    rounds per frame, three of its kernel calls held against the plain
-   version.  Its JSON line ``{"lookalike": ...}`` precedes the kernel
-   line, which lists the bias instance as a second entry.
+   version.  Its JSON line ``{"lookalike": ...}`` follows, and the kernel
+   line lists the bias instance as a second entry;
+9. training, on the same tree: (a) one ``tiny_debug`` float32
+   ``train_step`` (sgd, the clip active, compact-first) on the same
+   synthetic batch on the CPU and on the GPU, held by
+   ``train.parity.step_agreement``: loss and metrics, every gradient
+   and every post-step tensor within its stated tolerance; (b) 20
+   ``tiny_debug`` steps at lr 1e-3 on the GPU: the mean loss of the
+   last 5 below 0.85 of that of the first 5; then the train CLI
+   (``cli/train.run``) on the tree, one epoch each, its own loop timed
+   through a wrapper around its ``train_step``: (c) ``full_mmmot``
+   (bf16, 4 pairs a step, capacity 128, augmentation on): 2 warm-up
+   steps, 10 timed ones (ms a step, pairs a second, the load apart), 2
+   with a synchronising split (forward, backward, optimizer), peak
+   memory; (d) ``full_mmmot_b8`` (remat: each VGG stage checkpointed, 8
+   pairs, capacity 256) and the same without remat: 2 timed steps each
+   and their peak memory; (e) ``tiny_debug``, 4 steps.  In every run:
+   finite loss and grad norm, ``n_dets`` equal to the batch's valid
+   count, no fused-kernel launch in a step (the launches are counted),
+   every parameter moved after step 2; the validation of the held-out
+   sequence through ``track_kitti_sequences`` launches the fused
+   kernel; the latest and best checkpoints and the scalars are written.
+   After (c) and (e) the track CLI with ``--load-path`` on the best
+   checkpoint must write the validation's files again.  Its JSON line
+   ``{"training": ...}`` precedes the kernel line.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -105,8 +129,11 @@ import numpy as np
 import torch
 
 from mmmot_tpu_torch.assoc.auction import auction_lap
-from mmmot_tpu_torch.config import (full_mmmot, full_mmmot_lookalike,
+from mmmot_tpu_torch.config import (full_mmmot, full_mmmot_b8,
+                                    full_mmmot_lookalike,
                                     full_mmmot_noisy, tiny_debug)
+from mmmot_tpu_torch.data.kitti_loader import KittiPairLoader
+from mmmot_tpu_torch.data.synthetic import make_training_batch
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels import build as kbuild
 from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
@@ -118,6 +145,8 @@ from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
 from mmmot_tpu_torch.tracker.kitti_runner import track_kitti_sequences
 from mmmot_tpu_torch.tracker.sequence import track_sequence_from_frames
 from mmmot_tpu_torch.tracker.tracker import TrackingModule
+from mmmot_tpu_torch.train.parity import step_agreement
+from mmmot_tpu_torch.train.trainer import create_train_state, train_step
 
 T0 = time.time()
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
@@ -579,7 +608,8 @@ def main_path(net, dev, smi: str, profile: bool):
     result = dict(launches=launches, warm_ms=warm_s * 1e3, fps=T / warm_s,
                   stages_ms=times, n_valid=n_valid, auction_rounds=rounds)
     if profile:
-        result["profiled"] = profiled_pass(mod, args, kw)
+        result["profiled"] = profiled_pass(
+            lambda: track_sequence_from_frames(mod, *args, **kw))
     return result
 
 
@@ -597,29 +627,38 @@ def busy_ms(events) -> float:
     return total / 1e3
 
 
-def profiled_pass(mod, args, kw):
-    """One main-path pass under torch.profiler: its wall time on the host
+def profiled_pass(fn, what: str = "main path"):
+    """One call of ``fn`` under torch.profiler: its wall time on the host
     clock (profiler overhead included), the device's busy time (union of
-    kernel and copy intervals) and the idle share, all from this pass."""
+    kernel and copy intervals), the idle share and the ten kernels with
+    the most device time, all from this pass."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as prof
 
     torch.cuda.synchronize()
     with prof(activities=[ProfilerActivity.CPU,
                           ProfilerActivity.CUDA]) as p:
         t = time.perf_counter()
-        track_sequence_from_frames(mod, *args, **kw)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     print(p.key_averages().table(sort_by="cuda_time_total", row_limit=25),
           file=sys.stderr)
     busy = busy_ms(p.events())
     if busy == 0.0:
-        stage(f"profiled pass: {wall:.1f} ms wall; device time not measured "
-              "(the profiler saw no CUDA events)")
+        stage(f"profiled {what}: {wall:.1f} ms wall; device time not "
+              "measured (the profiler saw no CUDA events)")
         return dict(wall_ms=wall, device_busy_ms=None, idle_share=None)
-    stage(f"profiled pass: {wall:.1f} ms wall, device busy {busy:.1f} ms, "
-          f"idle share {1 - busy / wall:.3f}")
-    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall)
+    kernels = {}
+    for e in p.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    stage(f"profiled {what}: {wall:.1f} ms wall, device busy {busy:.1f} "
+          f"ms, idle share {1 - busy / wall:.3f}")
+    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                top_kernels_ms=[[k[:120], v] for k, v in top])
 
 
 # Phase 6: the KITTI runner on a tree written by the port's own PNG
@@ -1454,6 +1493,285 @@ def lookalike_phase(dev, smi: str, root: str, tmp: str):
     return result, kern
 
 
+# Phase 9: training on the tree.  (a) holds one tiny float32 step on the
+# GPU to the CPU's (``train.parity`` states the tolerances); (c), (d)
+# and (e) run the train CLI itself, ``cli/train.run``, on the tree.
+TRAIN_WARMUP, TRAIN_STEPS, TRAIN_SPLIT_STEPS = 2, 10, 2
+REMAT_STEPS = 2
+TRAIN_VAL = ("0001", 20, 64)    # held-out sequence, frames, window
+CLI_RUNS = ("full", "remat_b8", "plain_b8", "cli")
+
+
+def train_agreement(dev):
+    """(a) ``train.parity.step_agreement``: one tiny_debug float32 step
+    (sgd, clip active, compact-first at capacity 12) on the same
+    synthetic batch on the CPU and on the GPU (TF32 off): the loss and
+    metrics, every gradient and every post-step tensor."""
+    out = step_agreement(dev)
+    worst = out["max_rel_err"]
+    stage(f"training (a): tiny_debug f32 step CPU vs GPU: loss "
+          f"{out['loss']:.6f} vs {out['loss_cpu']:.6f}, grad_norm "
+          f"{out['grad_norm']:.4f}; worst gradient {worst['grad']:.2e}, "
+          f"post-step {worst['state']:.2e} of scale")
+    return out
+
+
+def train_learning(dev):
+    """(b) tiny_debug, 20 steps at lr 1e-3 on the GPU: the mean loss of
+    the last 5 below 0.85 of that of the first 5 (the bar of
+    tests/test_e2e_train.py)."""
+    import dataclasses
+
+    cfg = tiny_debug()
+    rng = np.random.default_rng(0)
+    net = init_random_(TrackingNet(cfg.model, device=dev), 0)
+    state = create_train_state(net, dataclasses.replace(cfg.train, lr=1e-3),
+                               20)
+    losses = []
+    for _ in range(20):
+        b = make_training_batch(rng, batch_size=4, num_slots=8,
+                                crop_size=(32, 32), points_per_det=16,
+                                drop_prob=0.05, fp_prob=0.1)
+        _, m = train_step(state, {k: torch.as_tensor(v, device=dev)
+                                  for k, v in b.items()})
+        losses.append(float(m["total"]))
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not np.isfinite(losses).all() or last >= 0.85 * first:
+        raise AssertionError(f"train learning: {losses}")
+    stage(f"training (b): tiny_debug 20 steps: mean loss {first:.4f} -> "
+          f"{last:.4f} ({last / first:.3f} of the first 5)")
+    return {"losses": losses, "first5": first, "last5": last}
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, fn):
+    """``obj.name`` is ``fn`` while open."""
+    saved = getattr(obj, name)
+    setattr(obj, name, fn)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+def train_cli_run(cfg, label: str, root: str, tmp: str, warmup: int,
+                  steps: int, smi: str, split_steps: int = 0,
+                  profile: bool = False, track: bool = False):
+    """(c), (d), (e): the train CLI (``cli/train.run``) on ``cfg`` over
+    the tree, on the GPU: one epoch of ``warmup + steps + split_steps``
+    steps (one more under torch.profiler with ``profile``) on
+    ``KittiPairLoader`` batches of sequence 0000 (augmentation on), the
+    validation of the held-out 0001 through ``track_kitti_sequences``,
+    the latest and best checkpoints and the scalars.
+
+    The CLI's own ``train_step`` runs wrapped: a synchronised host-clock
+    time of each step and of what the loop does before it (the batch:
+    PNG decode, the device's crops and samples, augmentation), and in the
+    split steps the step's stages in synchronising timers.  Every step:
+    finite loss and grad_norm, ``n_dets`` equal to the batch's valid
+    count (nothing dropped), no fused-kernel launch (counted all the
+    same); after step 2 every parameter with a gradient has moved.  The
+    validation must launch the kernel.  With ``track``, ``cli/track
+    --load-path`` on the best checkpoint then writes the validation's
+    files again."""
+    import dataclasses
+
+    import mmmot_tpu_torch.train.trainer as trainer_mod
+    from mmmot_tpu_torch.cli import track as track_cli
+    from mmmot_tpu_torch.cli import train as train_cli
+    from mmmot_tpu_torch.train.checkpoint import latest_step
+    from mmmot_tpu_torch.utils.scalars import read_scalars
+
+    n_steps = warmup + steps + split_steps + int(profile)
+    ckpt, res, logs = (f"{tmp}/{label}_{d}"
+                       for d in ("ckpt", "results", "runs"))
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, root=root),
+        train=dataclasses.replace(cfg.train, epochs=1, log_every=n_steps,
+                                  ckpt_dir=ckpt))
+    val_seq, val_frames, val_window = TRAIN_VAL
+    args = train_cli.parse_args([
+        "--config", cfg.name, "--steps-per-epoch", str(n_steps),
+        "--val-every", "1", "--val-frames", str(val_frames),
+        "--val-window", str(val_window), "--result-path", res,
+        "--log-dir", logs])
+    real_step, real_sample = trainer_mod.train_step, KittiPairLoader.sample
+    records, split = [], {}
+    rec = {"launches": 0, "decode_s": 0.0, "end": None, "peak": 0,
+           "profiled": None}
+
+    def sample(loader):
+        d0 = loader.ds.decode_s
+        try:
+            return real_sample(loader)
+        finally:
+            rec["decode_s"] += loader.ds.decode_s - d0
+
+    def step(state, batch, *a, **kw):
+        k = len(records)
+        torch.cuda.synchronize()
+        load_ms = (None if rec["end"] is None
+                   else (time.perf_counter() - rec["end"]) * 1e3)
+        decode_ms, rec["decode_s"] = rec["decode_s"] * 1e3, 0.0
+        valid = int(batch["det_mask"].sum())
+        if k == 0:
+            rec["start"] = {n: p.detach().clone()
+                            for n, p in state.net.named_parameters()}
+        before = kernel_launches()
+        t = time.perf_counter()
+        if k < warmup + steps:
+            out = real_step(state, batch, *a, **kw)
+        elif k < warmup + steps + split_steps:
+            timers = {"forward": (state.net, "forward"),
+                      "backward": (torch.Tensor, "backward"),
+                      "optimizer": (state.optimizer, "step")}
+            with stage_timers(None, timers) as (times, _):
+                out = real_step(state, batch, *a, **kw)
+            for name in timers:
+                split[name] = split.get(name, 0.0) + times[name]
+        else:
+            box = []
+            rec["profiled"] = profiled_pass(
+                lambda: box.append(real_step(state, batch, *a, **kw)),
+                f"{cfg.name} train step")
+            out = box[0]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        launches = kernel_launches() - before
+        rec["launches"] += launches
+        rec["peak"] = max(rec["peak"], torch.cuda.max_memory_allocated())
+        m = {n: float(v) for n, v in out[1].items()}
+        if not (np.isfinite(m["total"]) and np.isfinite(m["grad_norm"])):
+            raise AssertionError(f"{label}: step {k + 1}: {m}")
+        if int(m["n_dets"]) != valid:
+            raise AssertionError(f"{label}: n_dets {m['n_dets']} of "
+                                 f"{valid} valid: capacity overflow")
+        if launches:
+            raise AssertionError(f"{label}: the training step launched "
+                                 "the fused affinity kernel")
+        if k == 1:
+            still = [n for n, p in state.net.named_parameters()
+                     if p.grad is not None and torch.equal(
+                         p, rec["start"][n])]
+            if still:
+                raise AssertionError(f"{label}: unchanged after step 2: "
+                                     f"{still}")
+        records.append({"ms": ms, "load_ms": load_ms,
+                        "decode_ms": decode_ms, "valid": valid,
+                        "loss": m["total"], "grad_norm": m["grad_norm"]})
+        rec["end"] = time.perf_counter()
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    before = kernel_launches()
+    t = time.perf_counter()
+    with patched(trainer_mod, "train_step", step), \
+            patched(KittiPairLoader, "sample", sample):
+        result = train_cli.run(cfg, args)
+    seconds = time.perf_counter() - t
+    val_launches = kernel_launches() - before - rec["launches"]
+    if len(records) != n_steps or val_launches <= 0:
+        raise AssertionError(f"{label}: {len(records)} steps of {n_steps}, "
+                             f"{val_launches} validation launches")
+    best = f"{ckpt}/{cfg.name}_best"
+    if (latest_step(f"{ckpt}/{cfg.name}"), latest_step(best)) != (
+            n_steps, n_steps):
+        raise AssertionError(f"{label}: checkpoints missing")
+    tags = {r["tag"] for r in read_scalars(logs)}
+    if not {"loss/total", "lr", "val/mota"} <= tags:
+        raise AssertionError(f"{label}: scalars {sorted(tags)}")
+    mota = result["val"]["epoch0"].mota
+    timed = records[warmup:warmup + steps]
+    B = cfg.train.batch_size
+
+    def mean(key, rows=timed):
+        return float(np.mean([r[key] for r in rows]))
+
+    out = {"config": cfg.name, "batch_pairs": B,
+           "compact_capacity": cfg.train.compact_capacity,
+           "remat": cfg.model.remat, "steps": n_steps, "timed_steps": steps,
+           "step_ms": [r["ms"] for r in timed], "step_ms_mean": mean("ms"),
+           "pairs_per_s": B * 1e3 / mean("ms"),
+           "load_ms_mean": mean("load_ms"),
+           "png_decode_ms_mean": mean("decode_ms"),
+           "pairs_per_s_with_load": B * 1e3 / (mean("ms")
+                                               + mean("load_ms")),
+           "valid_dets": [r["valid"] for r in records],
+           "loss": [r["loss"] for r in records],
+           "grad_norm": [r["grad_norm"] for r in records],
+           "peak_mem_gib": rec["peak"] / 2 ** 30,
+           "peak_mem_gib_with_validation":
+               torch.cuda.max_memory_allocated() / 2 ** 30,
+           "train_step_launches": rec["launches"],
+           "launches": val_launches, "val_mota": mota,
+           "cli_seconds": seconds, "scalar_tags": sorted(tags),
+           "profiled": rec["profiled"], "gpu": smi}
+    if split_steps:
+        split = {k: v / split_steps for k, v in split.items()}
+        split["step"] = mean("ms", records[warmup + steps:
+                                           warmup + steps + split_steps])
+        split["rest"] = split["step"] - sum(split[k] for k in (
+            "forward", "backward", "optimizer"))
+    out["split_ms"] = split
+    if track:
+        track_cli.main(["--config", cfg.name, "--data-root", root,
+                        "--load-path", best, "--window", str(val_window),
+                        "--frames", str(val_frames), "--sequences", val_seq,
+                        "--result-path", f"{tmp}/{label}_tracked",
+                        "--result-sha", "best"])
+        got = result_files(f"{tmp}/{label}_tracked/{cfg.name}/best")
+        want = result_files(f"{res}/{cfg.name}/epoch0")
+        if sorted(got) != sorted(want) or f"{val_seq}.txt" not in got \
+                or any(got[k] != want[k] for k in got):
+            raise AssertionError(f"{label}: tracked files {sorted(got)} "
+                                 f"differ from the validation's "
+                                 f"{sorted(want)}")
+        out["tracked_files"] = sorted(got)
+    stage(f"training ({label}): train CLI, {cfg.name} B={B} capacity "
+          f"{cfg.train.compact_capacity} remat={cfg.model.remat}: "
+          f"{out['step_ms_mean']:.1f} ms/step ({out['pairs_per_s']:.1f} "
+          f"pairs/s; load {out['load_ms_mean']:.1f} ms a batch, of it PNG "
+          f"decode {out['png_decode_ms_mean']:.1f}), peak "
+          f"{out['peak_mem_gib']:.2f} GiB "
+          f"({out['peak_mem_gib_with_validation']:.2f} with the "
+          f"validation), loss {out['loss'][0]:.3f} -> "
+          f"{out['loss'][-1]:.3f}, split {split}; {n_steps} steps and the "
+          f"validation in {seconds:.1f} s, {val_launches} fused-kernel "
+          f"launches, MOTA {mota:.4f}"
+          + ("; track --load-path wrote the same files" if track else "")
+          + f"; {smi}")
+    return out
+
+
+def training_phase(dev, smi: str, root: str, tmp: str,
+                   profile: bool = False):
+    """Phase 9: (a) CPU/GPU agreement, (b) learning, then the train CLI:
+    (c) full_mmmot, (d) full_mmmot_b8 with remat and without, (e)
+    tiny_debug; (c) and (e) track their best checkpoints again."""
+    import dataclasses
+
+    out = {"agreement": train_agreement(dev),
+           "learning": train_learning(dev)}
+    out["full"] = train_cli_run(full_mmmot(), "full", root, tmp,
+                                TRAIN_WARMUP, TRAIN_STEPS, smi,
+                                TRAIN_SPLIT_STEPS, profile, track=True)
+    torch.cuda.empty_cache()
+    b8 = full_mmmot_b8()
+    out["remat_b8"] = train_cli_run(b8, "remat_b8", root, tmp, 1,
+                                    REMAT_STEPS, smi)
+    torch.cuda.empty_cache()
+    # The same batches without remat: what the checkpoints save.
+    plain = dataclasses.replace(
+        b8, model=dataclasses.replace(b8.model, remat=False))
+    out["plain_b8"] = train_cli_run(plain, "plain_b8", root, tmp, 1,
+                                    REMAT_STEPS, smi)
+    torch.cuda.empty_cache()
+    out["cli"] = train_cli_run(tiny_debug(), "cli", root, tmp, 1, 3, smi,
+                               track=True)
+    out["gpu"] = smi
+    return out
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -1507,6 +1825,8 @@ def main(argv=None) -> int:
         del net
         torch.cuda.empty_cache()
         lookalike, kern_bias = lookalike_phase(dev, smi, root, tmp)
+        torch.cuda.empty_cache()
+        training = training_phase(dev, smi, root, tmp, profile)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -1529,7 +1849,12 @@ def main(argv=None) -> int:
                              "runner": runner["launches"],
                              "quality_runner": quality["launches"],
                              "lookalike_runner": lookalike["launches"][
-                                 "no_bias"]},
+                                 "no_bias"],
+                             "train_cli": sum(
+                                 training[k]["launches"] for k in CLI_RUNS),
+                             "train_step": sum(
+                                 training[k]["train_step_launches"]
+                                 for k in CLI_RUNS)},
         "max_abs_err": worst(bf["errs"]),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -1584,6 +1909,7 @@ def main(argv=None) -> int:
     print(json.dumps({"runner": runner}))
     print(json.dumps({"quality": quality}))
     print(json.dumps({"lookalike": lookalike}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": [entry, entry_bias]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,10 @@ scores them with the devkit and HOTA (``summary_<cls>.txt``,
 (``full_mmmot_noisy``: the noisy-detector quality stack, reading
 ``detections/noisy/``; ``full_mmmot_lookalike``: that stack with GNN
 refine and the learned motion term, at 112² crops).  Weights come from
-``--weights`` (a flat ``params/...``, ``batch_stats/...`` numpy archive,
-see ``compat/from_jax.py::save_npz``) or are random from ``--seed``.
+``--load-path`` (a checkpoint directory of the port's trainer,
+``cli/train.py``: its latest step), ``--weights`` (a flat
+``params/...``, ``batch_stats/...`` numpy archive, see
+``compat/from_jax.py::save_npz``) or are random from ``--seed``.
 The GPU is used unless ``--cpu`` is given.
 """
 
@@ -41,9 +43,13 @@ def parse_args(argv=None):
     p.add_argument("--data-root", default=None,
                    help="KITTI tracking tree (default: the preset's "
                         "data.root)")
-    p.add_argument("--weights", default=None, metavar="NPZ",
-                   help="flax variables as a flat numpy archive; default: "
-                        "random weights from --seed")
+    weights = p.add_mutually_exclusive_group()
+    weights.add_argument("--load-path", default=None, metavar="DIR",
+                         help="checkpoint dir of the port's trainer (its "
+                              "latest step)")
+    weights.add_argument("--weights", default=None, metavar="NPZ",
+                         help="flax variables as a flat numpy archive; "
+                              "default: random weights from --seed")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--result-path", default="results")
     p.add_argument("--result-sha", default="latest",
@@ -69,16 +75,19 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_module(cfg, weights, seed: int, device):
-    """The port's TrackingModule with ``weights`` (npz path) or seeded
-    random weights."""
+def build_module(cfg, weights, seed: int, device, load_path=None):
+    """The port's TrackingModule with the weights of the checkpoint dir
+    ``load_path``, of ``weights`` (npz path), or seeded random ones."""
     from mmmot_tpu_torch.compat.from_jax import (load_flax_variables,
                                                  load_npz)
     from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
     from mmmot_tpu_torch.tracker.tracker import TrackingModule
+    from mmmot_tpu_torch.train.checkpoint import load_weights
 
     net = TrackingNet(cfg.model, device=device)
-    if weights:
+    if load_path:
+        load_weights(load_path, net)
+    elif weights:
         net.load_state_dict(load_flax_variables(load_npz(weights), net))
     else:
         init_random_(net, seed)
@@ -101,7 +110,7 @@ def main(argv=None):
             "missing); pass --data-root.  Tracking synthetic crops without "
             "a tree is not ported yet")
     module = build_module(cfg, args.weights, args.seed,
-                          "cpu" if args.cpu else "cuda")
+                          "cpu" if args.cpu else "cuda", args.load_path)
 
     from mmmot_tpu_torch.tracker.kitti_runner import track_kitti_sequences
 

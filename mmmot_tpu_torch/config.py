@@ -1,8 +1,8 @@
 """Configuration of the port: frozen dataclasses and Python presets.
 
 Only the knobs the flagship raw-frames path, the KITTI runner, the
-association quality stack and the look-alike stack (GNN refine, learned
-motion, the class gate) read are carried.  The values that the path
+association quality stack, the look-alike stack (GNN refine, learned
+motion, the class gate) and training read are carried.  The values that the path
 supports but does not vary (VGG with batch norm and skip pooling, subabs
 correlation, a 2-layer link head, dual softmax, v2 new/end heads with
 max pooling, ``add`` score fusion over the fused/image/lidar branches,
@@ -29,8 +29,13 @@ class AppearanceConfig:
     out_dim: int = 512
     crop_size: Tuple[int, int] = (224, 224)
     width_mult: float = 1.0
+    dropblock: bool = False            # not ported: raises when set
 
     def __post_init__(self):
+        if self.dropblock:
+            raise NotImplementedError(
+                "appearance.dropblock (DropBlock2D on the VGG stages) is not "
+                "ported to mmmot_tpu_torch (ROADMAP Queue 1)")
         if self.depth not in (11, 13, 16, 19):
             raise ValueError(
                 f"VGG depth must be 11/13/16/19, got {self.depth}")
@@ -89,6 +94,8 @@ class ModelConfig:
     affinity: AffinityConfig = field(default_factory=AffinityConfig)
     new_end: NewEndConfig = field(default_factory=NewEndConfig)
     compute_dtype: str = "float32"     # "bfloat16" | "float32" (parity)
+    remat: bool = False                # training: recompute the VGG trunk's
+                                       # activations in the backward pass
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -118,6 +125,7 @@ class DataConfig:
                                        # project into a detection box, in a
                                        # 4096 bucket; none: raw scan to M
     packed_cache: bool = False         # memmapped packed sequences
+    augmentation: bool = True          # training: data/augment.py
 
     def __post_init__(self):
         if self.track_class not in ("Car", "Pedestrian", "Cyclist", "All"):
@@ -207,11 +215,48 @@ class AssocConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    """Training (``mmmot_tpu/config.py::TrainConfig``, every field, with
+    its defaults).  ``batch_size`` counts frame pairs per step;
+    ``compact_capacity`` > 0 runs the forward's feature extraction on that
+    many valid detections only (overflow is dropped from the loss and
+    shows in the ``n_dets`` metric); ``loss_weights`` weigh the link,
+    new, end and det terms."""
+
+    optimizer: str = "adam"            # adam (adamw) | sgd
+    lr: float = 3e-4
+    weight_decay: float = 1e-4
+    momentum: float = 0.9
+    lr_schedule: str = "step"          # step | cosine | constant
+    lr_decay_epochs: Tuple[int, ...] = (20, 30)
+    lr_decay_rate: float = 0.1
+    warmup_steps: int = 200
+    epochs: int = 40
+    batch_size: int = 4
+    compact_capacity: int = 0
+    grad_clip: float = 10.0
+    loss_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0)
+    seed: int = 0
+    log_every: int = 20
+    ckpt_dir: str = "checkpoints"
+    ckpt_keep: int = 3
+
+
+@dataclass(frozen=True)
 class Config:
     name: str = "default"
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     assoc: AssocConfig = field(default_factory=AssocConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+
+
+# ``train:`` of experiments/full_mmmot/config.yaml (and of the presets
+# built on it): adam at 3e-4, 4 pairs a step at capacity 128, step decay
+# at epochs 20 and 30 of 40.
+FULL_TRAIN = TrainConfig(optimizer="adam", lr=3e-4, epochs=40, batch_size=4,
+                         compact_capacity=128, lr_schedule="step",
+                         lr_decay_epochs=(20, 30))
 
 
 def full_mmmot() -> Config:
@@ -228,7 +273,20 @@ def full_mmmot() -> Config:
             new_end=NewEndConfig(hidden_dim=256),
             compute_dtype="bfloat16"),
         data=DataConfig(max_dets=32, crop_size=(224, 224), point_len=512,
-                        det_source="pointpillars"))
+                        det_source="pointpillars"),
+        train=FULL_TRAIN)
+
+
+def full_mmmot_b8() -> Config:
+    """``experiments/full_mmmot_b8/config.yaml``: the flagship at 8
+    pairs a step and capacity 256, with the VGG trunk recomputed in the
+    backward pass (``model.remat``)."""
+    base = full_mmmot()
+    return dataclasses.replace(
+        base, name="full_mmmot_b8",
+        model=dataclasses.replace(base.model, remat=True),
+        train=dataclasses.replace(base.train, batch_size=8,
+                                  compact_capacity=256))
 
 
 def tiny_debug() -> Config:
@@ -244,7 +302,8 @@ def tiny_debug() -> Config:
             affinity=AffinityConfig(hidden_dim=32),
             new_end=NewEndConfig(hidden_dim=32),
             compute_dtype="float32"),
-        data=DataConfig(max_dets=8, crop_size=(32, 32), point_len=16))
+        data=DataConfig(max_dets=8, crop_size=(32, 32), point_len=16),
+        train=TrainConfig(batch_size=2, epochs=2))
 
 
 def full_mmmot_ydet() -> Config:
@@ -267,7 +326,9 @@ def full_mmmot_noisy() -> Config:
         assoc=AssocConfig(solver="auction", use_det_scores=True,
                           raw_new_end=True, revival_window=4, iou_gate=0.1,
                           iou_weight=1.0, ghost_coverage=True,
-                          coverage_max_miss=1))
+                          coverage_max_miss=1),
+        train=dataclasses.replace(base.train, epochs=12,
+                                  lr_schedule="cosine", warmup_steps=100))
 
 
 def full_mmmot_lookalike() -> Config:
@@ -288,4 +349,6 @@ def full_mmmot_lookalike() -> Config:
                                  crop_size=(112, 112), point_len=256),
         assoc=AssocConfig(solver="auction", use_det_scores=True,
                           raw_new_end=True, revival_window=4, iou_gate=0.1,
-                          iou_weight=1.0, ghost_coverage=True))
+                          iou_weight=1.0, ghost_coverage=True),
+        train=dataclasses.replace(base.train, epochs=10,
+                                  lr_schedule="cosine", warmup_steps=60))

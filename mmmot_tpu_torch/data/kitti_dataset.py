@@ -280,6 +280,18 @@ class KittiTrackingDataset:
                               .astype(np.float32),
                               cls_ids=cls_ids)
 
+    def training_pairs(self, seq: str, rng: np.random.Generator,
+                       num_pairs: int):
+        """Yield ``num_pairs`` adjacent-frame pairs of ``seq`` (two-frame
+        ``SequenceArrays``), each starting at a frame drawn from
+        ``rng``."""
+        frames = self._frames(seq)
+        if len(frames) < 2:
+            return
+        for _ in range(num_pairs):
+            t0 = int(rng.integers(0, len(frames) - 1))
+            yield self.load_sequence(seq, start=t0, max_frames=2)
+
 
 def _iou_pair(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     """Pairwise IoU of [Na, 4] x [Nb, 4] (l, t, r, b) boxes."""

@@ -70,7 +70,8 @@ class MotionScore(nn.Module):
 
 class AffinityModule(nn.Module):
     """Raw link scores [.., Np, Nc], zero at invalid pairs, after
-    ``gnn_rounds`` rounds of ``GNNRefine`` (submodules ``gnn_{r}``)."""
+    ``gnn_rounds`` rounds of ``GNNRefine`` (submodules ``gnn_{r}``).  In
+    train mode the head's BatchNorm counts the valid pairs only."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype,
                  gnn_rounds: int = 0):
@@ -94,7 +95,7 @@ class AffinityModule(nn.Module):
                                            mask_curr)
         pm = pair_mask(mask_prev, mask_curr)
         x = self.head_0(correlation_tensor(feat_prev, feat_curr))
-        x = torch.relu(self.head_bn_0(x))
+        x = torch.relu(self.head_bn_0(x, pm))
         score = self.head_out(x)[..., 0]
         return score * pm.to(score.dtype)
 

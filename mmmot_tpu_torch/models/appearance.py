@@ -3,14 +3,19 @@
 ``AppearanceNet``) without the space-to-depth stem.
 
 Crops arrive as [..., h, w, 3] like the reference; the permute to NCHW is
-a view with channels-last strides, which cuDNN runs directly.
+a view with channels-last strides, which cuDNN runs directly.  In train
+mode every BatchNorm takes the flat per-crop mask, and with ``remat``
+each stage of the VGG trunk runs under ``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from mmmot_tpu_torch.config import AppearanceConfig
 from mmmot_tpu_torch.models.layers import Conv3x3, Dense, MaskedBatchNorm
@@ -40,9 +45,17 @@ def trunk_ops(depth: int):
 
 
 class VGGBackbone(nn.Module):
-    def __init__(self, depth: int, width_mult: float, dtype: torch.dtype):
+    """The VGG trunk.  With ``remat``, in train mode with gradients on,
+    each pooling stage runs under ``torch.utils.checkpoint``: only the
+    stage boundaries are kept for the backward pass, and a stage's
+    activations are recomputed when its backward runs (with the running
+    statistics frozen, so that they move once a step)."""
+
+    def __init__(self, depth: int, width_mult: float, dtype: torch.dtype,
+                 remat: bool = False):
         super().__init__()
         self.ops = trunk_ops(depth)
+        self.remat = remat
         self.channels = []
         in_ch = 3
         for op in self.ops:
@@ -55,29 +68,58 @@ class VGGBackbone(nn.Module):
             in_ch = ch
             self.channels.append(ch)
 
-    def forward(self, x):
-        """x [n, C, H, W] -> feature map after every pooling stage."""
-        stages = []
+    def forward(self, x, mask=None):
+        """x [n, C, H, W] (+ mask [n], read in train mode) -> feature map
+        after every pooling stage."""
+        stages, segment = [], []
         for op in self.ops:
+            if op[0] != "stage":
+                segment.append(op)
+                continue
+            if self.remat and self.training and torch.is_grad_enabled():
+                x = checkpoint(self._segment, segment, x, mask,
+                               use_reentrant=False,
+                               context_fn=lambda: (contextlib.nullcontext(),
+                                                   self.frozen_stats()))
+            else:
+                x = self._segment(segment, x, mask)
+            stages.append(x)
+            segment = []
+        return stages
+
+    def _segment(self, ops, x, mask):
+        for op in ops:
             if op[0] == "pool":
                 x = F.max_pool2d(x, 2)
-            elif op[0] == "stage":
-                stages.append(x)
             else:
                 i = op[1]
                 x = getattr(self, f"conv_{i}")(x)
-                x = torch.relu(getattr(self, f"bn_{i}")(x))
-        return stages
+                x = torch.relu(getattr(self, f"bn_{i}")(x, mask))
+        return x
+
+    @contextlib.contextmanager
+    def frozen_stats(self):
+        """The BatchNorms keep their running statistics while inside (the
+        recomputation of a checkpointed forward)."""
+        bns = [m for m in self.modules() if isinstance(m, MaskedBatchNorm)]
+        for bn in bns:
+            bn.freeze_stats = True
+        try:
+            yield
+        finally:
+            for bn in bns:
+                bn.freeze_stats = False
 
 
 class AppearanceNet(nn.Module):
     """crops [..., h, w, 3] (+ slot mask [...]) -> embeddings [..., out]."""
 
-    def __init__(self, cfg: AppearanceConfig, dtype: torch.dtype):
+    def __init__(self, cfg: AppearanceConfig, dtype: torch.dtype,
+                 remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = dtype
-        self.backbone = VGGBackbone(cfg.depth, cfg.width_mult, dtype)
+        self.backbone = VGGBackbone(cfg.depth, cfg.width_mult, dtype, remat)
         # Stage widths are the widths of the last conv before each pool.
         stage_ch, ch = [], None
         for op in self.backbone.ops:
@@ -98,12 +140,13 @@ class AppearanceNet(nn.Module):
         lead = crops.shape[:-3]
         h, w, c = crops.shape[-3:]
         x = crops.reshape(-1, h, w, c).to(self.compute_dtype)
-        stages = self.backbone(x.permute(0, 3, 1, 2))
+        flat_mask = None if mask is None else mask.reshape(-1)
+        stages = self.backbone(x.permute(0, 3, 1, 2), flat_mask)
         pooled = []
         for i, s in enumerate(stages[-self.n_picked:]):
             p = s.amax(dim=(2, 3))                       # global max pool
             p = getattr(self, f"reduce_{i}")(p)
-            p = torch.relu(getattr(self, f"reduce_bn_{i}")(p))
+            p = torch.relu(getattr(self, f"reduce_bn_{i}")(p, flat_mask))
             pooled.append(p)
         feat = self.proj(torch.cat(pooled, dim=-1))
         feat = feat.reshape(*lead, self.cfg.out_dim)

@@ -56,12 +56,80 @@ class Conv3x3(nn.Conv2d):
         return y + self.bias.to(dt)[:, None, None]
 
 
+class _TrainNorm(torch.autograd.Function):
+    """Train-mode masked BatchNorm with the reference's gradient and a
+    lean backward: only the input (in its own dtype) and per-channel
+    vectors are kept, and the float32 passes are recomputed there.
+
+    Moments in float32 over the ``m``-valid positions (``m`` broadcasts
+    against ``x`` with size 1 on the channel axis; None: every
+    position), ``cnt`` positions in all.  ``var = max(s2/cnt - mean^2,
+    0)`` rounds the subtraction once (XLA contracts it; with one valid
+    position that makes the tie at 0 rare but possible), and the maximum
+    splits the gradient evenly at a tie, as ``jnp.maximum`` does.  The
+    output is ``(x - mean) * rsqrt(var + eps) * scale + bias`` with the
+    last multiply-add rounded once, cast to ``out_dtype``."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, m, cnt, dims, shape, out_dtype):
+        xf = x.float()
+        if m is None:
+            s1 = xf.sum(dims)
+            s2 = (xf * xf).sum(dims)
+        else:
+            s1 = (xf * m).sum(dims)
+            s2 = (xf * xf * m).sum(dims)
+        mean = s1 / cnt
+        var_raw = fma(-mean, mean, s2 / cnt)
+        var = torch.maximum(var_raw, torch.zeros_like(var_raw))
+        inv = torch.rsqrt(var + BN_EPS)
+        y = fma((xf - mean.view(shape)) * inv.view(shape), scale.view(shape),
+                bias.view(shape))
+        ctx.save_for_backward(x, scale, m, mean, var_raw, inv)
+        ctx.cnt, ctx.dims, ctx.shape = cnt, dims, shape
+        return y.to(out_dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, scale, m, mean, var_raw, inv = ctx.saved_tensors
+        cnt, dims, shape = ctx.cnt, ctx.dims, ctx.shape
+        g = gy.float()
+        xc = x.float() - mean.view(shape)
+        g_bias = g.sum(dims)
+        g_xc = (g * xc).sum(dims)                 # sum g * (x - mean)
+        g_scale = g_xc * inv
+        # y = xc * inv * scale + bias: through inv (var) and through mean.
+        g_inv = g_xc * scale
+        g_var = g_inv * (-0.5) * inv * inv * inv
+        tie = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5,
+                                                        0.0))
+        g_raw = g_var * tie
+        g_s2 = g_raw / cnt
+        g_s1 = (-inv * scale * g_bias - 2.0 * mean * g_raw) / cnt
+        # Through s1 = sum(m x) and s2 = sum(m x^2).
+        g_stats = g_s1.view(shape) + 2.0 * x.float() * g_s2.view(shape)
+        gx = g * (inv * scale).view(shape) + (
+            g_stats if m is None else m * g_stats)
+        return gx.to(x.dtype), g_scale, g_bias, None, None, None, None, None
+
+
 class MaskedBatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the channel axis ``dim``, computed in
-    float32 from the running statistics (eps 1e-5) and cast back to
-    ``dtype`` — ``mmmot_tpu.models.layers.MaskedBatchNorm`` with
-    ``use_running_average=True``, where the mask plays no part.  The last
-    multiply-add rounds once (``fma``), as in the reference."""
+    """BatchNorm over the channel axis ``dim`` in float32 (eps 1e-5),
+    cast back to ``dtype``: ``mmmot_tpu.models.layers.MaskedBatchNorm``.
+
+    Eval mode (``use_running_average``): the running statistics; the
+    mask plays no part.  The last multiply-add rounds once (``fma``), as
+    in the reference.
+
+    Train mode (``self.training``): moments over the ``mask``-valid
+    positions only (``_TrainNorm``).  ``mask`` covers the leading axes of
+    ``x`` (without the channel): the per-crop mask [n] of a [n, C, H, W]
+    map, a [..., P] point mask, a [..., Np, Nc] pair mask; each valid
+    mask entry counts every position it covers (H*W for a crop).  The
+    running statistics then move as ``0.9 * old + 0.1 * new`` with the
+    variance stored unbiased (``* cnt / max(cnt - 1, 1)``), unless
+    ``freeze_stats`` is set (a recomputation under gradient
+    checkpointing)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  dim: int = -1):
@@ -72,15 +140,46 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.compute_dtype = dtype
         self.dim = dim
+        self.freeze_stats = False
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
+        dim = self.dim % x.dim()
         shape = [1] * x.dim()
-        shape[self.dim] = -1
+        shape[dim] = -1
+        if self.training:
+            return self._train(x, mask, dim, shape)
         mean, var, scale, bias = (t.view(shape) for t in (
             self.running_mean, self.running_var, self.weight, self.bias))
         inv = torch.rsqrt(var + BN_EPS)
         y = fma((x.float() - mean) * inv, scale, bias)
         return y.to(self.compute_dtype)
+
+    def _train(self, x, mask, dim, shape):
+        dims = tuple(d for d in range(x.dim()) if d != dim)
+        positions = x.numel() // x.shape[dim]
+        if mask is None:
+            m = None
+            cnt = torch.tensor(float(positions), device=x.device)
+        else:
+            # The mask covers the leading non-channel axes; the view has
+            # size 1 on every axis it does not cover (the channel too).
+            lead = [s for d, s in enumerate(x.shape) if d != dim]
+            if tuple(mask.shape) != tuple(lead[:mask.dim()]):
+                raise ValueError(f"mask {tuple(mask.shape)} does not cover "
+                                 f"the leading axes of {tuple(x.shape)}")
+            view = list(mask.shape) + [1] * (len(lead) - mask.dim())
+            view.insert(dim, 1)
+            m = mask.reshape(view).float()
+            cnt = mask.sum().float() * (positions // max(mask.numel(), 1))
+        cnt = cnt.clamp_min(1.0)
+        y, mean, var = _TrainNorm.apply(x, self.weight, self.bias, m, cnt,
+                                        dims, shape, self.compute_dtype)
+        if not self.freeze_stats:
+            with torch.no_grad():
+                unbiased = var * (cnt / (cnt - 1.0).clamp_min(1.0))
+                self.running_mean.mul_(0.9).add_(0.1 * mean)
+                self.running_var.mul_(0.9).add_(0.1 * unbiased)
+        return y
 
 
 class MLP2(nn.Module):

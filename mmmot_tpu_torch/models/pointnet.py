@@ -1,5 +1,6 @@
 """LiDAR branch: port of ``mmmot_tpu/models/pointnet.py::PointNet``
-(shared per-point MLP, masked max pool, projection; no T-Net)."""
+(shared per-point MLP, masked max pool, projection; no T-Net).  In train
+mode the BatchNorms count the valid points of valid detections only."""
 
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ class PointNet(nn.Module):
         x = points.to(self.compute_dtype)
         for i in range(self.n_layers):
             x = getattr(self, f"mlp_{i}")(x)
-            x = torch.relu(getattr(self, f"bn_{i}")(x))
+            x = torch.relu(getattr(self, f"bn_{i}")(x, pm))
         feat = self.proj(masked_max(x, pm[..., None], dim=-2))
         if det_mask is not None:
             feat = feat * det_mask[..., None].to(feat.dtype)

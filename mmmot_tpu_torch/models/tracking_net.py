@@ -1,5 +1,8 @@
 """The composed tracking network: port of
-``mmmot_tpu/models/tracking_net.py::TrackingNet`` (eval forward).
+``mmmot_tpu/models/tracking_net.py::TrackingNet``: the tracker's calls
+(``extract``, ``affinity`` and the rest) and the training forward over
+[B, T, N, ...] samples (``forward``).  The net starts in eval mode;
+``net.train()`` switches its BatchNorms to masked batch statistics.
 
 Module and parameter names follow the flax tree (``appear_net``,
 ``point_net``, ``fusion``, ``affinity_{fused,image,lidar}`` with their
@@ -23,6 +26,7 @@ from mmmot_tpu_torch.models.fusion import FusionModule
 from mmmot_tpu_torch.models.layers import MLP2
 from mmmot_tpu_torch.models.new_end import NewEndHead
 from mmmot_tpu_torch.models.pointnet import PointNet
+from mmmot_tpu_torch.ops.masking import compact_indices, scatter_compact
 
 # Branches with their own link scorer, in kernel order (fused first).
 BRANCHES = ("fused", "image", "lidar")
@@ -41,7 +45,7 @@ class TrackingNet(nn.Module):
         self.cfg = cfg
         dt = self.compute_dtype = dtype_of(cfg.compute_dtype)
         d = cfg.fusion.out_dim
-        self.appear_net = AppearanceNet(cfg.appearance, dt)
+        self.appear_net = AppearanceNet(cfg.appearance, dt, cfg.remat)
         self.point_net = PointNet(cfg.point, dt)
         self.fusion = FusionModule(cfg.fusion, cfg.appearance.out_dim,
                                    cfg.point.out_dim, dt)
@@ -109,6 +113,56 @@ class TrackingNet(nn.Module):
     def det_score(self, fused, det_mask):
         s = self.det_head(fused)[..., 0]
         return s * det_mask.to(s.dtype)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                compact_capacity: int = 0) -> Dict[str, torch.Tensor]:
+        """The training forward (``TrackingNet.__call__`` of the
+        reference) over padded samples: batch crops [B, T, N, h, w, 3],
+        points [B, T, N, P, 4], point_mask [B, T, N, P], det_mask [B, T,
+        N] (and boxes [B, T, N, 4] with ``motion_dim`` > 0).
+
+        Returns link, link_norm [B, T-1, N, N], new, end [B, T-1, N] of
+        every adjacent frame pair (the unfused module path) and det [B,
+        T, N].  ``compact_capacity`` > 0 extracts features of the first
+        ``compact_capacity`` valid (b, t, n) slots only and scatters them
+        back; valid slots past it are dropped, and ``kept_mask`` [B, T,
+        N] (also returned) replaces det_mask everywhere after."""
+        crops, points = batch["crops"], batch["points"]
+        point_mask, det_mask = batch["point_mask"], batch["det_mask"]
+        B, T, N = det_mask.shape
+        if compact_capacity:
+            total = B * T * N
+            idx, taken = compact_indices(det_mask.reshape(-1),
+                                         compact_capacity)
+
+            def g(x):
+                return x.reshape((total,) + x.shape[3:])[idx]
+
+            feats_c = self.extract(g(crops), g(points), g(point_mask), taken)
+            feats = {k: scatter_compact(v, idx, taken, total).reshape(
+                B, T, N, -1) for k, v in feats_c.items()}
+            kept = torch.zeros(total, dtype=torch.bool,
+                               device=det_mask.device)
+            kept[idx] = taken
+            det_mask = kept.reshape(B, T, N)
+        else:
+            feats = self.extract(crops, points, point_mask, det_mask)
+        if self.cfg.affinity.motion_dim:
+            if "boxes" not in batch:
+                raise ValueError(
+                    "affinity.motion_dim > 0: training batches must carry "
+                    "'boxes' [B, T, N, 4] detection boxes (pixel l,t,r,b)")
+            feats = dict(feats, box=batch["boxes"].float())
+        outs = [self.affinity({k: v[:, t] for k, v in feats.items()},
+                              {k: v[:, t + 1] for k, v in feats.items()},
+                              det_mask[:, t], det_mask[:, t + 1])
+                for t in range(T - 1)]
+        out = {k: torch.stack([getattr(o, k) for o in outs], dim=1)
+               for k in AffinityOutput._fields}
+        out["det"] = self.det_score(feats["fused"], det_mask)
+        if compact_capacity:
+            out["kept_mask"] = det_mask
+        return out
 
 
 def init_random_(net: TrackingNet, seed: int) -> TrackingNet:

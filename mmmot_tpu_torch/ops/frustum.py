@@ -72,3 +72,25 @@ def frustum_sample(points, boxes, proj, num_samples: int,
     centroid = (sampled[..., :3] * m).sum(-2, keepdim=True) / cnt[..., None]
     xyz = (sampled[..., :3] - centroid) * m
     return torch.cat([xyz, sampled[..., 3:]], dim=-1), sample_mask
+
+
+def frustum_sample_batched(points, boxes, proj, num_samples: int,
+                           det_mask: Optional[torch.Tensor] = None,
+                           point_valid: Optional[torch.Tensor] = None):
+    """points [..., M, C], boxes [..., N, 4], proj [3, 4] or [..., 3, 4]
+    -> (sampled [..., N, P, C], sample_mask [..., N, P]):
+    ``frustum_sample`` over the flattened leading axes."""
+    lead = boxes.shape[:-2]
+    M, C = points.shape[-2:]
+    N = boxes.shape[-2]
+    pf = points.reshape(-1, M, C)
+    B = pf.shape[0]
+    projf = proj if proj.dim() == 2 else proj.expand(lead + (3, 4)).reshape(
+        B, 3, 4)
+    sampled, mask = frustum_sample(
+        pf, boxes.reshape(B, N, 4), projf, num_samples,
+        det_mask=None if det_mask is None else det_mask.reshape(B, N),
+        point_valid=None if point_valid is None else point_valid.reshape(
+            B, M))
+    return (sampled.reshape(lead + (N, num_samples, C)),
+            mask.reshape(lead + (N, num_samples)))

@@ -30,12 +30,25 @@ def masked_mean(x, mask, dim):
 
 def masked_softmax(x, mask, dim: int = -1):
     """Softmax over ``dim`` with zero probability at invalid entries;
-    fully-masked rows are all zero."""
+    fully-masked rows are all zero.  The max shift carries no gradient
+    (the reference's ``stop_gradient``)."""
     logits = torch.where(mask, x, _neg(x))
-    logits = logits - logits.amax(dim=dim, keepdim=True)
+    logits = logits - logits.amax(dim=dim, keepdim=True).detach()
     unnorm = torch.exp(logits) * mask.to(x.dtype)
     den = unnorm.sum(dim=dim, keepdim=True)
     return unnorm / den.clamp_min(1e-30)
+
+
+def masked_log_softmax(x, mask, dim: int = -1):
+    """Log-softmax over ``dim`` of the valid entries; ``NEG_INF`` (finite)
+    at invalid ones, so a ``where(mask, logp, 0)`` downstream has finite
+    gradients.  The max shift carries no gradient."""
+    neg = _neg(x)
+    logits = torch.where(mask, x, neg)
+    shifted = logits - logits.amax(dim=dim, keepdim=True).detach()
+    unnorm = torch.where(mask, torch.exp(shifted), torch.zeros_like(shifted))
+    lse = torch.log(unnorm.sum(dim=dim, keepdim=True).clamp_min(1e-30))
+    return torch.where(mask, shifted - lse, neg)
 
 
 def pair_mask(mask_a, mask_b):

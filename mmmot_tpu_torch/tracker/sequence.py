@@ -1,5 +1,6 @@
-"""Whole-sequence tracking from raw frames: port of the compact-first
-branch of ``mmmot_tpu/tracker/sequence.py::track_sequence_from_frames``
+"""Whole-sequence tracking: port of ``mmmot_tpu/tracker/sequence.py``,
+the crops-given ``track_sequence`` and the compact-first branch of
+``track_sequence_from_frames``
 with its execution strategies (``_scan_track``: ``_parallel_track``,
 ``_hybrid_track``, ``_revival_track`` and the sequential scan), and of
 ``track_sequences_from_frames_batched`` (the S axis).
@@ -556,6 +557,61 @@ def track_sequences_from_frames_batched(
     out["n_dropped"] = (det_mask.sum((1, 2)) - kept.sum((1, 2))).to(
         torch.int32)
     return (out, final) if return_state else out
+
+
+def track_sequence(module: TrackingModule, crops, points, point_mask,
+                   det_mask, compact_capacity: Optional[int] = None,
+                   boxes=None):
+    """Track one sequence of ``T`` frames of padded, already cropped
+    detections (``tracker/sequence.py::track_sequence`` of the
+    reference) on ``module``'s device.
+
+    crops [T, N, h, w, 3], points [T, N, P, C], point_mask [T, N, P],
+    det_mask [T, N] (numpy arrays or tensors); boxes [T, N, 4] when the
+    module carries boxes (a class-gated module is refused: it needs the
+    class ids of ``track_sequence_from_frames``).  With
+    ``compact_capacity`` only the first ``compact_capacity`` valid
+    (frame, slot) pairs are extracted (the rest are dropped and counted);
+    without it every slot is.  Returns {"ids": [T, N] int32, "det_score":
+    [T, N], "n_dropped": 0-dim int32} (and the ghost outputs with
+    coverage)."""
+    if module.class_gating:
+        raise ValueError("track_sequence takes no class ids: a class-gated "
+                         "module tracks through track_sequence_from_frames")
+    dev = module.device
+    crops, points, point_mask, det_mask = (
+        torch.as_tensor(x, device=dev)
+        for x in (crops, points, point_mask, det_mask))
+    det_mask, point_mask = det_mask.bool(), point_mask.bool()
+    T, N = det_mask.shape
+    n_valid = det_mask.sum()
+    if compact_capacity is not None:
+        capacity = min(compact_capacity, T * N)
+        idx, taken = compact_indices(det_mask.reshape(-1), capacity)
+
+        def gather(x):
+            return x.reshape((T * N,) + x.shape[2:])[idx]
+
+        with torch.inference_mode():
+            feats_c = module.extract(gather(crops), gather(points),
+                                     gather(point_mask), taken)
+            feats = {k: scatter_compact(v, idx, taken, T * N)
+                     .reshape(T, N, -1) for k, v in feats_c.items()}
+            kept = torch.zeros(T * N, dtype=torch.bool, device=dev)
+            kept[idx] = taken
+        det_mask = kept.reshape(T, N)
+    else:
+        feats = module.extract(crops, points, point_mask, det_mask)
+    if module.carry_boxes:
+        if boxes is None:
+            raise ValueError("this module carries boxes (spatial gate, "
+                             "coverage or motion): pass boxes [T, N, 4]")
+        feats["box"] = torch.as_tensor(boxes, device=dev).float()
+    out, _ = _scan_track(module, {k: v[None] for k, v in feats.items()},
+                         det_mask[None])
+    out = {k: v[0] for k, v in out.items()}
+    out["n_dropped"] = (n_valid - det_mask.sum()).to(torch.int32)
+    return out
 
 
 def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,

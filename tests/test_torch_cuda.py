@@ -135,3 +135,16 @@ def test_tiny_tracking_cpu_equals_gpu(gpu):
             crop_window=128)
         ids.append(out["ids"].cpu())
     assert torch.equal(ids[0], ids[1])
+
+
+def test_tiny_train_step_cpu_equals_gpu(gpu):
+    """One tiny_debug float32 training step (sgd with the clip active,
+    compact-first at capacity 12; TF32 off) on the CPU and on the GPU,
+    held by ``train.parity.step_agreement``: the loss and metrics within
+    1e-4 relative, every gradient and post-step tensor within 1e-3 of its
+    largest magnitude (the biases that feed a train-mode BatchNorm to
+    the scale of their layer's weight gradient)."""
+    from mmmot_tpu_torch.train.parity import step_agreement
+
+    worst = step_agreement(gpu)["max_rel_err"]
+    assert max(worst.values()) <= 1e-3, worst

@@ -4,11 +4,13 @@ A fresh interpreter installs a ``sys.meta_path`` finder that refuses
 those names, imports every module of ``mmmot_tpu_torch`` and loads
 ``chip_smoke.py`` and ``auction_rounds.py`` as modules (without running
 ``main``); none of the
-refused names may reach ``sys.modules``.  The track CLI's ``--help``
-runs under the same finder.  The machine with the GPU has
+refused names may reach ``sys.modules``.  The track and train CLIs'
+``--help`` and a two-step synthetic training run on the CPU run under
+the same finder.  The machine with the GPU has
 none of them installed, so an import there would fail at start-up.
 """
 
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -95,3 +97,36 @@ def test_track_cli_noisy_preset_without_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "full_mmmot_noisy" in proc.stdout
+
+
+TRAIN_CLI = GUARD + r"""
+import runpy
+sys.argv = ["train", "--help"]
+try:
+    runpy.run_module("mmmot_tpu_torch.cli.train", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
+from mmmot_tpu_torch.cli.train import main
+out = main(["--config", "tiny_debug", "--cpu", "--synthetic",
+            "--steps-per-epoch", "1", "--val-sequences", "1",
+            "--val-frames", "4"])
+assert out["state"].step == 2, out["state"].step
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+print("steps", out["state"].step)
+"""
+
+
+def test_train_cli_help_and_synthetic_run_without_jax(tmp_path):
+    """``--help``, then ``--cpu --synthetic`` for tiny_debug's two epochs
+    of one step each with synthetic validation (checkpoints, results and
+    scalars land in the working directory, here a temporary one)."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", TRAIN_CLI], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=300,
+                          env=env)
+    assert proc.returncode == 0, proc.stderr
+    assert "--load-path" in proc.stdout and "--steps-per-epoch" in proc.stdout
+    assert "steps 2" in proc.stdout
+    assert (tmp_path / "checkpoints" / "tiny_debug_best").is_dir()
+    assert (tmp_path / "runs" / "tiny_debug" / "scalars.jsonl").is_file()

@@ -61,6 +61,7 @@ def inputs(seed=0, lead=(2, N)):
 @pytest.mark.parametrize("name,yaml_path", [
     ("tiny_debug", "experiments/tiny_debug/config.yaml"),
     ("full_mmmot", "experiments/full_mmmot/config.yaml"),
+    ("full_mmmot_b8", "experiments/full_mmmot_b8/config.yaml"),
     ("full_mmmot_ydet", "experiments/full_mmmot_ydet/config.yaml"),
     ("full_mmmot_noisy", "experiments/full_mmmot_noisy/config.yaml"),
     ("full_mmmot_lookalike",
@@ -80,6 +81,8 @@ def test_presets_match_yaml(name, yaml_path):
         for f in dataclasses.fields(p):
             assert getattr(p, f.name) == getattr(r, f.name), (sect, f.name)
     assert port.model.compute_dtype == ref.model.compute_dtype
+    assert port.model.remat == ref.model.remat
+    assert dataclasses.asdict(port.train) == dataclasses.asdict(ref.train)
     for f in dataclasses.fields(port.data):
         want = getattr(ref.data, f.name)
         assert getattr(port.data, f.name) == (
