@@ -109,7 +109,28 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    kernel; the latest and best checkpoints and the scalars are written.
    After (c) and (e) the track CLI with ``--load-path`` on the best
    checkpoint must write the validation's files again.  Its JSON line
-   ``{"training": ...}`` precedes the kernel line.
+   ``{"training": ...}`` follows;
+10. serving (``deploy.py``, ``cli/serve.py``, ``cli/export.py``): (a)
+   ``tiny_debug`` float32 on a synthetic scene, CPU against GPU: the
+   per-frame step's ids equal, one launch a frame on the GPU, and on
+   each device the S=3 multi-stream step (padded, and compact) under
+   partial flushes equals per-stream steps, its inactive lanes
+   unchanged bit for bit; (b) ``full_mmmot`` with phase 7's calibrated
+   weights, exported by ``cli/export`` and loaded by
+   ``DeployedTracker``, over the first 40 frames of sequence 0000 (full
+   16384-point scans): ids checked, one launch a frame, latency
+   p50/p90/max after 3 warm frames, one frame's stages timed, the
+   kernel at B=1 N=32 against its plain version, ids against the window
+   pipeline's; (c) S=4 streams (both sequences at two offsets), 12
+   flushes padded and at compact capacity 64: one launch a flush, ms a
+   flush, frames a second, ids against per-stream steps, drops equal to
+   the overflow, the kernel at B=4; (d) ``full_mmmot_noisy``'s per-frame
+   step over 20 frames of noisy detections (2N=64 state, the kernel at
+   B=1 N=64); (e) ``python -m mmmot_tpu_torch.cli.serve`` as a GPU
+   subprocess, ``--exported --warmup`` and then ``--streams 2``, driven
+   through the NDJSON protocol.  Its JSON line ``{"serving": ...}``
+   precedes the kernel line, which lists the three serving shapes as
+   entries of their own.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -1772,6 +1793,544 @@ def training_phase(dev, smi: str, root: str, tmp: str,
     return out
 
 
+# Phase 10: serving.  (a) tiny float32 per-frame and multi-stream steps,
+# CPU against GPU; (b) full_mmmot through DeployedTracker, loaded from
+# an artifact cli/export writes; (c) the multi-stream step at S=4,
+# padded and compact; (d) full_mmmot_noisy's per-frame step; (e) the
+# serve CLI in a subprocess on the GPU.
+SERVE_FRAMES, SERVE_WARM = 40, 3
+STREAMS, STREAM_FRAMES, STREAM_OFFSETS = 4, 12, (0, 28)
+STREAM_CAPACITY = 64
+NOISY_SERVE_FRAMES = 20
+SCHEDULE = ([0, 1, 2], [0, 2], [1], [0, 2], [1])   # (a): partial flushes
+
+
+def lane_of(tree, s):
+    if isinstance(tree, dict):
+        return {k: lane_of(v, s) for k, v in tree.items()}
+    return tree[s]
+
+
+def tree_equal(a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(tree_equal(a[k], b[k]) for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def stream_inputs(frames, picks, S: int, n_slots: int):
+    """Stacked multi-stream inputs for one flush: ``picks`` {stream: its
+    frame (image, cloud, boxes [N, 4], det_mask [N], proj)}; the other
+    lanes hold zeros.  Returns (active [S], the five stacked arrays)."""
+    ref = next(iter(picks.values()))
+    out = [np.zeros((S,) + np.shape(x), np.asarray(x).dtype) for x in ref]
+    active = np.zeros((S,), bool)
+    for s, fr in picks.items():
+        for o, x in zip(out, fr):
+            o[s] = np.asarray(x)
+        active[s] = True
+    return active, out
+
+
+def multistream_schedule(mod, crop, P, n_slots, streams, schedule,
+                         capacity=None, split_last: bool = False):
+    """Run the multi-stream step over ``schedule`` (active streams per
+    flush) on ``streams`` [stream][frame] = (image, cloud, boxes [N, 4],
+    det_mask [N], proj); inactive lanes must keep their state bit for bit
+    and answer -1.  With ``split_last`` the last flush runs with its
+    stages timed (``stage_timers``) and is left out of the flush times.
+    Returns (ids per stream per frame, ms per flush, launches, auction
+    rounds per flush, valid detections per flush, (split, seen) of the
+    last flush or None)."""
+    from mmmot_tpu_torch.deploy import (_build_multistream_step,
+                                        _stacked_state)
+
+    S = len(streams)
+    multi = _build_multistream_step(mod, crop, P, capacity)
+    states = _stacked_state(mod, n_slots, S)
+    frame_of, got = [0] * S, [[] for _ in range(S)]
+    ms, rounds, valid, split = [], [], [], None
+    fused_affinity.launches = 0
+    for i, slots in enumerate(schedule):
+        active, ins = stream_inputs(
+            streams, {s: streams[s][frame_of[s]] for s in slots}, S, n_slots)
+        before, r0 = states, auction_lap.rounds
+        if split_last and i == len(schedule) - 1:
+            with stage_timers(mod, serve_frame_stages(mod)) as split:
+                states, ids, scores = multi(states, active, *ins)
+            ids = ids.cpu()
+        else:
+            if mod.device.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            states, ids, scores = multi(states, active, *ins)
+            ids = ids.cpu()
+            ms.append((time.perf_counter() - t) * 1e3)
+        rounds.append(auction_lap.rounds - r0)
+        valid.append(int(ins[3].sum()))
+        for s in range(S):
+            if s in slots:
+                got[s].append(ids[s][torch.as_tensor(ins[3][s])].tolist())
+                frame_of[s] += 1
+            elif not ((ids[s] == -1).all() and (scores[s] == 0).all()
+                      and tree_equal(lane_of(states, s),
+                                     lane_of(before, s))):
+                raise AssertionError(f"multi-stream: inactive lane {s} "
+                                     "changed")
+    return got, ms, fused_affinity.launches, rounds, valid, split
+
+
+def per_stream_ids(mod, crop, P, n_slots, frames):
+    """(b)-style per-frame steps over one stream's frames: ids of the
+    valid slots per frame."""
+    from mmmot_tpu_torch.deploy import _build_step, _fresh_state, \
+        _state_to_dict
+
+    step = _build_step(mod, crop, P)
+    st = _state_to_dict(_fresh_state(mod, n_slots))
+    out = []
+    for image, cloud, boxes, dm, proj in frames:
+        st, ids, _ = step(st, image, cloud, boxes, dm, proj)
+        out.append(ids.cpu()[torch.as_tensor(dm)].tolist())
+    return out
+
+
+def serving_agreement(dev):
+    """(a) tiny_debug float32 with seeded weights, on the CPU (plain
+    versions) and the GPU (kernels): the per-frame step over a 6-frame
+    synthetic scene gives equal ids on both, one launch a frame on the
+    GPU; on each device the multi-stream step at S=3 (padded, and
+    compact at a capacity that holds every detection) under partial
+    flushes ({0, 1, 2}, {0, 2}, {1}, ...) gives the per-stream steps' ids
+    and keeps its inactive lanes bit for bit."""
+    cfg = tiny_debug()
+    crop, P, Nt = tuple(cfg.data.crop_size), cfg.data.point_len, \
+        cfg.data.max_dets
+    gen = torch.Generator().manual_seed(11)
+
+    def frames(T_, lo, hi):
+        im, cl, bx, dm, pj = synthetic_frames(gen, "cpu", T_, 96, 320, 512,
+                                              Nt, lo, hi)
+        return [(im[t], cl[t], bx[t], dm[t], pj) for t in range(T_)]
+
+    scene = frames(6, 2, 9)
+    streams = [frames(3, 1, 7) for _ in range(3)]
+    ids, report = {}, {}
+    for device in ("cpu", dev):
+        net = init_random_(TrackingNet(cfg.model, device=device), 7)
+        with torch.no_grad():           # favour links over new/end
+            for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+                head.dense_1.bias.fill_(-3.0)
+        mod = TrackingModule(net)
+        with f32_parity():
+            before = fused_affinity.launches
+            ids[device] = per_stream_ids(mod, crop, P, Nt, scene)
+            launched = fused_affinity.launches - before
+            if launched != (0 if device == "cpu" else len(scene)):
+                raise AssertionError(f"serving agreement on {device}: "
+                                     f"{launched} launches")
+            want = [per_stream_ids(mod, crop, P, Nt, s) for s in streams]
+            for capacity in (None, 3 * Nt):
+                got, _, launches, _, _, _ = multistream_schedule(
+                    mod, crop, P, Nt, streams, SCHEDULE, capacity)
+                if got != want:
+                    raise AssertionError(
+                        f"{device} multi-stream (capacity {capacity}) ids "
+                        f"{got} != per-stream {want}")
+                if launches != (0 if device == "cpu" else len(SCHEDULE)):
+                    raise AssertionError(f"multi-stream on {device}: "
+                                         f"{launches} launches")
+        report[device] = want
+    if ids["cpu"] != ids[dev]:
+        raise AssertionError(f"serve step ids differ between CPU and GPU: "
+                             f"{ids['cpu']} vs {ids[dev]}")
+    stage(f"serving agreement: tiny f32 serve-step ids equal on CPU and GPU "
+          f"over {len(scene)} frames; multi-stream S=3 (padded, compact) "
+          f"equals the per-stream steps on each device, inactive lanes "
+          f"unchanged")
+    return {"frames": len(scene), "ids": ids["cpu"],
+            "multistream_flushes": len(SCHEDULE),
+            "per_stream_equal_cpu_gpu": report["cpu"] == report[dev]}
+
+
+def tree_frames(a):
+    """Per-frame serving inputs of a loaded sequence: (image, cloud
+    [M, 4] with invalid points zeroed, boxes [N, 4], det_mask [N],
+    proj)."""
+    clouds = np.where(a.cloud_valid[..., None], a.clouds, 0.0).astype(
+        np.float32)
+    return [(a.images[t], clouds[t], a.boxes[t], a.det_mask[t], a.proj)
+            for t in range(len(a.images))]
+
+
+def percentiles(ms):
+    return {"p50": float(np.percentile(ms, 50)),
+            "p90": float(np.percentile(ms, 90)), "max": float(max(ms)),
+            "mean": float(np.mean(ms)), "frames": len(ms)}
+
+
+def serve_frame_stages(mod):
+    import mmmot_tpu_torch.deploy as dep_mod
+    import mmmot_tpu_torch.tracker.tracker as trk_mod
+
+    return {"frame": (dep_mod, "_frames_step"),
+            "crop": (dep_mod, "crop_and_resize_batched"),
+            "frustum": (dep_mod, "frustum_sample_batched"),
+            "extract": (mod, "extract"),
+            "decisions": (mod, "frame_decisions"),
+            "auction": (trk_mod, "associate"),
+            "ids": (trk_mod, "assign_ids")}
+
+
+def serve_kernel(seen, label):
+    """The fused kernel against its plain version (phase 3's
+    tolerances) and timed, on the inputs of the split frame's call."""
+    a, b, mp, mc, params, bias = seen["args"]
+    if bias is not None:
+        raise AssertionError(f"{label}: unexpected link_bias")
+    with torch.inference_mode():
+        return measure_kernel(a, b, mp, mc, params, torch.bfloat16, label)
+
+
+def serve_single(trk, a, dev):
+    """(b) The sequence's frames through ``DeployedTracker.step``: ids
+    checked (every valid detection an id, unique per frame, inherited or
+    fresh in slot order), one kernel launch a frame, latency per frame on
+    the host clock (the call returns the ids on the host); the last frame
+    with its stages timed; the kernel on its inputs; the ids against the
+    window pipeline's on the same frames."""
+    frames = tree_frames(a)
+    T_, n_slots = a.det_mask.shape
+    ids = np.full((T_, n_slots), -1, np.int64)
+    ms, rounds = [], []
+    fused_affinity.launches = auction_lap.rounds = 0
+    for t, (image, cloud, boxes, dm, proj) in enumerate(frames):
+        launches, r0 = fused_affinity.launches, auction_lap.rounds
+        if t == T_ - 1:
+            with stage_timers(trk.module, serve_frame_stages(
+                    trk.module)) as (split, seen):
+                got, scores = trk.step(image, cloud, boxes[dm], proj)
+        else:
+            t0 = time.perf_counter()
+            got, scores = trk.step(image, cloud, boxes[dm], proj)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rounds.append(auction_lap.rounds - r0)
+        if fused_affinity.launches - launches != 1:
+            raise AssertionError(f"serve frame {t}: "
+                                 f"{fused_affinity.launches - launches} "
+                                 "kernel launches")
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"serve frame {t}: non-finite scores")
+        ids[t, :len(got)] = got
+    launches = fused_affinity.launches
+    check_ids(torch.as_tensor(ids), torch.as_tensor(a.det_mask))
+    split["rounds"] = seen["calls"]["auction"][0][1]
+    kern = serve_kernel(seen, f"serve B=1 N={n_slots}")
+    mod = trk.module
+    n_valid = int(a.det_mask.sum())
+    window = track_sequence_from_frames(
+        mod, a.images, a.clouds, a.boxes, a.det_mask, a.proj,
+        tuple(trk.manifest["crop_size"]), trk.manifest["point_len"],
+        cloud_valid=a.cloud_valid,
+        compact_capacity=-(-n_valid // CHUNK) * CHUNK, extract_chunk=CHUNK,
+        crop_window=crop_window(torch.as_tensor(a.boxes),
+                                torch.as_tensor(a.det_mask), KITTI_W))
+    wids = window["ids"].cpu().numpy()
+    same = (wids == ids)[a.det_mask]
+    differ = np.nonzero(~(wids == ids).all(1))[0]
+    lat = percentiles(ms[SERVE_WARM:])
+    result = {"frames": T_, "detections": n_valid, "launches": launches,
+              "latency_ms": lat, "latency_first_ms": ms[:SERVE_WARM],
+              "rounds_per_frame": {"min": min(rounds),
+                                   "median": int(np.median(rounds)),
+                                   "max": max(rounds), "total": sum(rounds)},
+              "split_ms": split, "kernel": kern,
+              "window_agreement": {"ids_equal": int(same.sum()),
+                                   "valid": int(same.size),
+                                   "first_differing_frame": (
+                                       int(differ[0]) if len(differ)
+                                       else None)},
+              "tracks": int(len(np.unique(ids[ids >= 0])))}
+    stage(f"serving (b): {T_} frames of 0000 through DeployedTracker, "
+          f"{launches} launches, latency after {SERVE_WARM} warm frames "
+          f"{lat} ms, rounds per frame {result['rounds_per_frame']}, split "
+          f"{split}, ids equal to the window pipeline's at "
+          f"{int(same.sum())} of {same.size} detections")
+    return result
+
+
+def serve_multistream(mod, seqs, dev):
+    """(c) S=4 streams (the tree's two sequences at two offsets) through
+    the multi-stream step, every flush with all four active, padded and
+    at compact capacity 64: one kernel launch a flush, ms a flush and
+    frames a second, ids against per-stream steps; every valid
+    detection past the capacity, and no other, is dropped."""
+    crop, P = tuple(mod.net.cfg.appearance.crop_size), \
+        mod.net.cfg.point.point_len
+    streams = [tree_frames(seqs[s])[o:o + STREAM_FRAMES]
+               for s, _ in RUNNER_SEQS for o in STREAM_OFFSETS]
+    S, n_slots = len(streams), seqs["0000"].det_mask.shape[1]
+    want = [per_stream_ids(mod, crop, P, n_slots, s) for s in streams]
+    schedule = [list(range(S))] * STREAM_FRAMES
+    out = {}
+    for name, capacity in (("padded", None), ("compact", STREAM_CAPACITY)):
+        got, ms, launches, rounds, valid, split = multistream_schedule(
+            mod, crop, P, n_slots, streams, schedule, capacity,
+            split_last=True)
+        if launches != len(schedule):
+            raise AssertionError(f"multi-stream {name}: {launches} "
+                                 f"launches for {len(schedule)} flushes")
+        dropped = sum(sum(i < 0 for i in f) for s in got for f in s)
+        overflow = sum(max(0, v - (capacity or v)) for v in valid)
+        if dropped != overflow:
+            raise AssertionError(f"multi-stream {name}: {dropped} detections "
+                                 f"without an id, {overflow} over the "
+                                 "capacity")
+        equal = sum(g == w for gs, ws in zip(got, want)
+                    for g, w in zip(gs, ws))
+        warm = ms[1:]
+        out[name] = {"launches": launches, "ms_per_flush": percentiles(warm),
+                     "first_flush_ms": ms[0],
+                     "fps": S * len(warm) / (sum(warm) / 1e3),
+                     "rounds_per_flush": rounds, "valid_per_flush": valid,
+                     "dropped": dropped,
+                     "frames_equal_per_stream_steps": equal,
+                     "frames": S * len(schedule), "split_ms": split[0]}
+        if capacity is None:
+            out["kernel"] = serve_kernel(split[1], f"multistream B={S} "
+                                                   f"N={n_slots}")
+        stage(f"serving (c) {name}: S={S}, {len(schedule)} flushes, "
+              f"{launches} launches, {out[name]['ms_per_flush']} ms a "
+              f"flush, {out[name]['fps']:.2f} frames/s, valid per flush "
+              f"{valid}, dropped {dropped}, {equal} of {S * len(schedule)} "
+              f"frames' ids equal the per-stream steps'")
+    return out
+
+
+def serve_noisy(net, root, dev):
+    """(d) full_mmmot_noisy's association through the per-frame step
+    over the first frames of 0000's noisy detections: the 2N=64 state,
+    the ghost pool, y_det; one launch a frame (N=64), ms and auction
+    rounds a frame; the last frame's kernel call held against the plain
+    version."""
+    import dataclasses
+
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.deploy import (_build_step, _fresh_state,
+                                        _state_to_dict)
+
+    cfg = full_mmmot_noisy()
+    data = dataclasses.replace(cfg.data, root=root, cloud_filter="none")
+    a = KittiTrackingDataset(data, max_cloud_points=CLOUD_POINTS
+                             ).load_sequence("0000",
+                                             max_frames=NOISY_SERVE_FRAMES)
+    mod = TrackingModule(net, cfg.assoc)
+    step = _build_step(mod, tuple(cfg.data.crop_size), cfg.data.point_len)
+    n_slots = cfg.data.max_dets
+    state = _state_to_dict(_fresh_state(mod, n_slots))
+    frames = tree_frames(a)
+    ids = np.full((len(frames), n_slots), -1, np.int64)
+    ms, rounds = [], []
+    fused_affinity.launches = auction_lap.rounds = 0
+    for t, (image, cloud, boxes, dm, proj) in enumerate(frames):
+        r0 = auction_lap.rounds
+        if t == len(frames) - 1:
+            with stage_timers(mod, serve_frame_stages(mod)) as (split, seen):
+                state, got, _ = step(state, image, cloud, boxes, dm, proj)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, got, _ = step(state, image, cloud, boxes, dm, proj)
+            got = got.cpu()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        rounds.append(auction_lap.rounds - r0)
+        ids[t] = got.cpu().numpy()
+    launches = fused_affinity.launches
+    if launches != len(frames):
+        raise AssertionError(f"noisy serving: {launches} launches for "
+                             f"{len(frames)} frames")
+    check_quality_ids(ids, a.det_mask, QUALITY_K)
+    kern = serve_kernel(seen, f"noisy serve B=1 N={2 * n_slots}")
+    if kern["slots"] != 2 * n_slots:
+        raise AssertionError(f"noisy serving: kernel at N={kern['slots']}")
+    counts = quality_counts({"0000": {"ids": ids, "det_mask": a.det_mask,
+                                      "ghost_ids": np.full_like(ids, -1)}},
+                            QUALITY_K)
+    result = {"frames": len(frames), "launches": launches,
+              "ms_per_frame": percentiles(ms[SERVE_WARM:]),
+              "rounds_per_frame": {"min": min(rounds),
+                                   "median": int(np.median(rounds)),
+                                   "max": max(rounds), "total": sum(rounds)},
+              "split_ms": dict(split, rounds=seen["calls"]["auction"][0][1]),
+              "kernel": kern,
+              "lp_rejections": counts["lp_rejections"],
+              "revived_ids": counts["revived_ids"]}
+    stage(f"serving (d) {cfg.name}: {len(frames)} frames, {launches} "
+          f"launches at N={2 * n_slots}, {result['ms_per_frame']} ms a frame, "
+          f"rounds {result['rounds_per_frame']}, {counts}")
+    return result
+
+
+class ServeProcess:
+    """``python -m mmmot_tpu_torch.cli.serve <args>`` on the GPU, read
+    through a thread so that every response waits at most ``timeout``
+    seconds; any ``error`` response fails unless it is expected."""
+
+    def __init__(self, args, timeout: float = 300.0):
+        import os
+        import queue
+        import threading
+
+        self.timeout = timeout
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "mmmot_tpu_torch.cli.serve", *args],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.lines = queue.Queue()
+
+        def read():
+            for line in self.proc.stdout:
+                self.lines.put(line)
+            self.lines.put(None)
+
+        threading.Thread(target=read, daemon=True).start()
+
+    def send(self, obj):
+        self.proc.stdin.write(json.dumps(obj) + "\n")
+        self.proc.stdin.flush()
+
+    def recv(self, error_ok: bool = False):
+        line = self.lines.get(timeout=self.timeout)
+        if line is None:
+            raise AssertionError(f"serve CLI ended with exit code "
+                                 f"{self.proc.wait()}")
+        out = json.loads(line)
+        if "error" in out and not error_ok:
+            raise AssertionError(f"serve CLI answered {out}")
+        return out
+
+    def rpc(self, obj, error_ok: bool = False):
+        self.send(obj)
+        return self.recv(error_ok)
+
+    def close(self) -> int:
+        try:
+            self.proc.stdin.close()
+            return self.proc.wait(timeout=120)
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def serve_cli(art: str, config: str, seqs, tmp: str):
+    """(e) The serve CLI on the GPU: ``--exported`` with ``--warmup`` (the
+    ready line with warmup_secs, 5 frames, a reset and frame 0 again with
+    equal ids, quit with exit 0); then ``--config full_mmmot --streams 2
+    --flush-ms 30`` with interleaved streams, as
+    tests/test_serve.py::test_serve_multistream_interleaved drives it."""
+    paths = {}
+    for s, key in (("0000", "a"), ("0001", "b")):
+        for t, (image, cloud, boxes, dm, proj) in enumerate(
+                tree_frames(seqs[s])[:5]):
+            paths[key, t] = f"{tmp}/serve_{key}{t}.npz"
+            np.savez(paths[key, t], image=image, cloud=cloud,
+                     boxes=boxes[dm], proj=proj)
+    out = {}
+    svc = ServeProcess(["--exported", art, "--warmup"])
+    try:
+        t0 = time.perf_counter()
+        ready = svc.recv()
+        out["exported_ready_s"] = time.perf_counter() - t0
+        if not (ready.get("ready") and "warmup_secs" in ready):
+            raise AssertionError(f"serve --exported: ready line {ready}")
+        got = [svc.rpc({"npz": paths["a", t]}) for t in range(5)]
+        if [r["frame"] for r in got] != list(range(5)):
+            raise AssertionError(f"serve --exported: frames {got}")
+        svc.rpc({"cmd": "reset"})
+        again = svc.rpc({"npz": paths["a", 0]})
+        if again != got[0]:
+            raise AssertionError(f"serve --exported: after reset {again} "
+                                 f"!= {got[0]}")
+        svc.rpc({"cmd": "quit"})
+    finally:
+        rc = svc.close()
+    if rc != 0:
+        raise AssertionError(f"serve --exported exited with {rc}")
+    out["exported"] = {"ready": ready, "ids": [r["ids"] for r in got]}
+
+    svc = ServeProcess(["--config", config, "--streams", "2",
+                        "--flush-ms", "30"])
+    try:
+        ready = svc.recv()
+        if ready.get("streams") != 2:
+            raise AssertionError(f"serve --streams: ready line {ready}")
+        svc.send({"npz": paths["a", 0], "stream": "a"})
+        svc.send({"npz": paths["b", 0], "stream": "b"})
+        ra, rb = svc.recv(), svc.recv()
+        a1 = svc.rpc({"npz": paths["a", 1], "stream": "a"})
+        svc.send({"npz": paths["b", 1], "stream": "b"})
+        svc.send({"npz": paths["b", 2], "stream": "b"})
+        rb1, rb2 = svc.recv(), svc.recv()
+        svc.rpc({"cmd": "reset", "stream": "a"})
+        ra0 = svc.rpc({"npz": paths["a", 0], "stream": "a"})
+        refused = svc.rpc({"npz": paths["a", 0], "stream": "c"},
+                          error_ok=True)
+        rb3 = svc.rpc({"npz": paths["b", 0], "stream": "b"})
+        svc.rpc({"cmd": "quit"})
+    finally:
+        rc = svc.close()
+    seen = [(r["stream"], r["frame"]) for r in (ra, rb, a1, rb1, rb2, ra0,
+                                                 rb3)]
+    if (seen != [("a", 0), ("b", 0), ("a", 1), ("b", 1), ("b", 2), ("a", 0),
+                 ("b", 3)] or "error" not in refused or ra0 != ra
+            or rc != 0):
+        raise AssertionError(f"serve --streams 2: {seen}, {refused}, "
+                             f"{ra0} vs {ra}, exit {rc}")
+    out["multistream"] = {"ready": ready, "responses": seen}
+    stage(f"serving (e): serve CLI --exported (warmup "
+          f"{out['exported']['ready']['warmup_secs']} s) and --streams 2 "
+          "answered the protocol on the GPU")
+    return out
+
+
+def serving_phase(dev, smi: str, root: str, tmp: str):
+    """Phase 10: (a)-(e) above.  The full-width weights are phase 7's:
+    seed 0, heads calibrated on the tree (``calibrate_heads``)."""
+    import dataclasses
+
+    from mmmot_tpu_torch.cli.export import main as export_main
+    from mmmot_tpu_torch.compat.from_jax import save_npz, to_flax_variables
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.deploy import DeployedTracker
+
+    agreement = serving_agreement(dev)
+    cfg = full_mmmot()
+    net = init_random_(TrackingNet(cfg.model, device=dev), 0)
+    heads, _ = calibrate_heads(net, dataclasses.replace(
+        full_mmmot_noisy().data, root=root), dev)
+    weights, art = f"{tmp}/serve_weights.npz", f"{tmp}/serve_artifact"
+    save_npz(weights, to_flax_variables(net))
+    del net
+    t = time.perf_counter()
+    export_main(["--config", cfg.name, "--weights", weights, "--out", art,
+                 "--shape", f"{KITTI_H}x{KITTI_W}x{CLOUD_POINTS}"])
+    trk = DeployedTracker.load(art, device=dev)
+    load_s = time.perf_counter() - t
+    data = dataclasses.replace(cfg.data, root=root, cloud_filter="none")
+    ds = KittiTrackingDataset(data, max_cloud_points=CLOUD_POINTS)
+    seqs = {s: ds.load_sequence(s, max_frames=SERVE_FRAMES)
+            for s, _ in RUNNER_SEQS}
+    single = serve_single(trk, seqs["0000"], dev)
+    multi = serve_multistream(trk.module, seqs, dev)
+    noisy = serve_noisy(trk.module.net, root, dev)
+    del trk
+    torch.cuda.empty_cache()
+    cli = serve_cli(art, cfg.name, seqs, tmp)
+    return {"agreement": agreement, "export_and_load_s": load_s,
+            "heads": heads, "single": single, "multistream": multi,
+            "noisy": noisy, "cli": cli, "gpu": smi}
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -1827,6 +2386,8 @@ def main(argv=None) -> int:
         lookalike, kern_bias = lookalike_phase(dev, smi, root, tmp)
         torch.cuda.empty_cache()
         training = training_phase(dev, smi, root, tmp, profile)
+        torch.cuda.empty_cache()
+        serving = serving_phase(dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -1854,7 +2415,14 @@ def main(argv=None) -> int:
                                  training[k]["launches"] for k in CLI_RUNS),
                              "train_step": sum(
                                  training[k]["train_step_launches"]
-                                 for k in CLI_RUNS)},
+                                 for k in CLI_RUNS),
+                             "serve_step": serving["single"]["launches"],
+                             "multistream_padded": serving["multistream"][
+                                 "padded"]["launches"],
+                             "multistream_compact": serving["multistream"][
+                                 "compact"]["launches"],
+                             "noisy_serve_step": serving["noisy"][
+                                 "launches"]},
         "max_abs_err": worst(bf["errs"]),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -1901,6 +2469,34 @@ def main(argv=None) -> int:
         "float32": {"scan": bias_at(torch.float32, "scan"),
                     "b16": bias_at(torch.float32, "b16")},
     }
+    def serving_entry(instance, r, launches, what):
+        return {
+            "name": f"fused_affinity[{instance}]", "route": "cuda",
+            "source": "mmmot_tpu_torch/csrc/affinity.cu",
+            "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
+            "instance": what, "launches": launches,
+            "max_abs_err": worst(r["errs"]),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms", "call_ms", "plain_call_ms",
+                                 "library_call_ms", "launch_ms",
+                                 "valid_pairs", "frame_pairs", "slots")},
+            "library_call": "torch.bmm [K, B*N*N, D] x [K, D, H] (the W1 "
+                            "product alone, over all pairs)",
+            "dtype": "bfloat16"}
+
+    multi_kern = serving["multistream"].pop("kernel")
+    serving_entries = [
+        serving_entry("serve_step", serving["single"]["kernel"],
+                      serving["single"]["launches"],
+                      "per-frame serving step, B=1 N=32 (phase 10 (b))"),
+        serving_entry("multistream S=4", multi_kern,
+                      serving["multistream"]["padded"]["launches"],
+                      "multi-stream flush, B=4 N=32 (phase 10 (c), "
+                      "padded; the compact run launches as many)"),
+        serving_entry("serve_step N=64", serving["noisy"]["kernel"],
+                      serving["noisy"]["launches"],
+                      "full_mmmot_noisy's per-frame step, B=1 N=64 "
+                      "(phase 10 (d))")]
     print(json.dumps({"main_path": {
         "frames": T, "detections": run["n_valid"], "warm_ms": run["warm_ms"],
         "auction_rounds": run["auction_rounds"],
@@ -1910,7 +2506,8 @@ def main(argv=None) -> int:
     print(json.dumps({"quality": quality}))
     print(json.dumps({"lookalike": lookalike}))
     print(json.dumps({"training": training}))
-    print(json.dumps({"kernels": [entry, entry_bias]}))
+    print(json.dumps({"serving": serving}))
+    print(json.dumps({"kernels": [entry, entry_bias] + serving_entries}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

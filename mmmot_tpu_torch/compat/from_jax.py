@@ -1,12 +1,14 @@
-"""flax variables -> ``TrackingNet`` state dict.
+"""flax variables <-> ``TrackingNet`` state dict.
 
 Inverse of ``mmmot_tpu/compat/torch_convert.py``: conv kernels HWIO ->
 OIHW, Dense kernels [in, out] -> [out, in], MaskedBatchNorm scale / bias /
 mean / var -> weight / bias / running_mean / running_var (eps 1e-5 on
 both sides).  The input is the JAX package's ``{"params": ...,
 "batch_stats": ...}`` as nested dicts of numpy arrays; nothing here reads
-JAX.  ``save_npz``/``load_npz`` carry those dicts across as one flat numpy
-archive (the track CLI's ``--weights``).
+JAX.  ``to_flax_variables`` goes the other way (the port's deployment
+artifacts store weights in the flax layout).  ``save_npz``/``load_npz``
+carry those dicts across as one flat numpy archive (the track CLI's
+``--weights``).
 """
 
 from __future__ import annotations
@@ -29,7 +31,9 @@ def _flatten(tree: Mapping, prefix=()):
 
 
 def _convert(leaf: str, value) -> torch.Tensor:
-    arr = np.asarray(value, np.float32)
+    # A bfloat16 leaf arrives as a tensor: numpy has no bfloat16.
+    arr = (value.float().numpy() if isinstance(value, torch.Tensor)
+           else np.asarray(value, np.float32))
     if leaf == "kernel":
         if arr.ndim == 4:                                # HWIO -> OIHW
             arr = arr.transpose(3, 2, 0, 1)
@@ -64,6 +68,34 @@ def load_flax_variables(variables_np: Mapping, net) -> Dict[str, torch.Tensor]:
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != torch "
                              f"shape {tuple(want[k].shape)}")
+    return out
+
+
+def to_flax_variables(net) -> Dict[str, Dict]:
+    """The flax variables ``{"params": ..., "batch_stats": ...}`` of
+    ``net`` (a ``TrackingNet``) as nested dicts of float32 numpy arrays:
+    the exact inverse of :func:`load_flax_variables`.  A 1-D ``weight``
+    is a BatchNorm scale, a 2-D or 4-D one a Dense or conv kernel."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for key, t in net.state_dict().items():
+        *path, leaf = key.split(".")
+        arr = t.detach().float().cpu().numpy()
+        if leaf in _STAT_LEAVES.values():
+            coll, name = "batch_stats", leaf[len("running_"):]
+        elif leaf == "bias":
+            coll, name = "params", "bias"
+        elif leaf == "weight" and arr.ndim == 1:
+            coll, name = "params", "scale"
+        elif leaf == "weight" and arr.ndim in (2, 4):
+            coll, name = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        else:
+            raise KeyError(f"torch -> flax bridge: no flax leaf for {key} "
+                           f"of shape {tuple(arr.shape)}")
+        node = out[coll]
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
     return out
 
 

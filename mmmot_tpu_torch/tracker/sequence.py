@@ -559,6 +559,33 @@ def track_sequences_from_frames_batched(
     return (out, final) if return_state else out
 
 
+def compact_extract(module: TrackingModule, crops, points, point_mask,
+                    det_mask, capacity: int):
+    """Features of the valid slots of padded, already cropped detections
+    (the reference's ``_compact_extract``): crops [T, N, h, w, 3], points
+    [T, N, P, C], point_mask [T, N, P], det_mask [T, N] bool, on
+    ``module``'s device.  The valid (frame, slot) pairs are gathered
+    valid-first over the flattened [T * N] grid into ``capacity`` rows,
+    extracted in one call and scattered back.
+    Valid slots past the capacity are dropped.  Returns (feats {branch:
+    [T, N, D]}, zero at every slot not kept; kept [T, N] bool)."""
+    T, N = det_mask.shape
+    capacity = min(capacity, T * N)
+    idx, taken = compact_indices(det_mask.reshape(-1), capacity)
+
+    def gather(x):
+        return x.reshape((T * N,) + x.shape[2:])[idx]
+
+    with torch.inference_mode():
+        feats_c = module.extract(gather(crops), gather(points),
+                                 gather(point_mask), taken)
+        feats = {k: scatter_compact(v, idx, taken, T * N).reshape(T, N, -1)
+                 for k, v in feats_c.items()}
+        kept = torch.zeros(T * N, dtype=torch.bool, device=det_mask.device)
+        kept[idx] = taken
+    return feats, kept.reshape(T, N)
+
+
 def track_sequence(module: TrackingModule, crops, points, point_mask,
                    det_mask, compact_capacity: Optional[int] = None,
                    boxes=None):
@@ -583,23 +610,10 @@ def track_sequence(module: TrackingModule, crops, points, point_mask,
         torch.as_tensor(x, device=dev)
         for x in (crops, points, point_mask, det_mask))
     det_mask, point_mask = det_mask.bool(), point_mask.bool()
-    T, N = det_mask.shape
     n_valid = det_mask.sum()
     if compact_capacity is not None:
-        capacity = min(compact_capacity, T * N)
-        idx, taken = compact_indices(det_mask.reshape(-1), capacity)
-
-        def gather(x):
-            return x.reshape((T * N,) + x.shape[2:])[idx]
-
-        with torch.inference_mode():
-            feats_c = module.extract(gather(crops), gather(points),
-                                     gather(point_mask), taken)
-            feats = {k: scatter_compact(v, idx, taken, T * N)
-                     .reshape(T, N, -1) for k, v in feats_c.items()}
-            kept = torch.zeros(T * N, dtype=torch.bool, device=dev)
-            kept[idx] = taken
-        det_mask = kept.reshape(T, N)
+        feats, det_mask = compact_extract(module, crops, points, point_mask,
+                                          det_mask, compact_capacity)
     else:
         feats = module.extract(crops, points, point_mask, det_mask)
     if module.carry_boxes:

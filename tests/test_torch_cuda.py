@@ -148,3 +148,35 @@ def test_tiny_train_step_cpu_equals_gpu(gpu):
 
     worst = step_agreement(gpu)["max_rel_err"]
     assert max(worst.values()) <= 1e-3, worst
+
+
+def test_deployed_tracker_launches_the_kernel_once_per_step(gpu, tmp_path):
+    """A tiny serve_step artifact served on the GPU: one fused-kernel
+    launch per ``step``, and the ids of the CPU's plain versions."""
+    import numpy as np
+
+    from mmmot_tpu_torch.deploy import DeployedTracker, export_serve_step
+
+    cfg = tiny_debug()
+    module = TrackingModule(init_random_(TrackingNet(cfg.model,
+                                                     device="cpu"), 4))
+    export_serve_step(str(tmp_path), cfg, module, (64, 96), 300)
+    rng = np.random.default_rng(0)
+    proj = np.array([[50.0, 0, 48, 0], [0, 50.0, 32, 0], [0, 0, 1, 0]],
+                    np.float32)
+    trackers = {d: DeployedTracker.load(str(tmp_path), device=d)
+                for d in ("cpu", gpu)}
+    for t in range(4):
+        image = rng.integers(0, 255, (64, 96, 3)).astype(np.uint8)
+        cloud = np.stack([rng.uniform(-8, 8, 300), rng.uniform(-2, 2, 300),
+                          rng.uniform(2, 30, 300), np.zeros(300)],
+                         -1).astype(np.float32)
+        boxes = np.array([[4 + 2 * t + 20 * i, 8 + 6 * i, 20 + 2 * t + 20 * i,
+                           28 + 6 * i] for i in range(3)], np.float32)
+        ids = {}
+        for d, trk in trackers.items():
+            before = fused_affinity.launches
+            with f32_parity():
+                ids[d] = trk.step(image, cloud, boxes, proj)[0]
+            assert fused_affinity.launches - before == (d == gpu)
+        assert ids["cpu"] == ids[gpu]

@@ -6,7 +6,9 @@ those names, imports every module of ``mmmot_tpu_torch`` and loads
 ``main``); none of the
 refused names may reach ``sys.modules``.  The track and train CLIs'
 ``--help`` and a two-step synthetic training run on the CPU run under
-the same finder.  The machine with the GPU has
+the same finder, as do the serve and export CLIs' ``--help`` (with
+``ml_dtypes`` refused too: the artifacts' bfloat16 leaves are read
+without it).  The machine with the GPU has
 none of them installed, so an import there would fail at start-up.
 """
 
@@ -130,3 +132,27 @@ def test_train_cli_help_and_synthetic_run_without_jax(tmp_path):
     assert "steps 2" in proc.stdout
     assert (tmp_path / "checkpoints" / "tiny_debug_best").is_dir()
     assert (tmp_path / "runs" / "tiny_debug" / "scalars.jsonl").is_file()
+
+
+SERVE_EXPORT_HELP = GUARD.replace('"mmmot_tpu")', '"mmmot_tpu", "ml_dtypes")') + r"""
+import runpy
+for mod in ("mmmot_tpu_torch.cli.serve", "mmmot_tpu_torch.cli.export"):
+    sys.argv = [mod, "--help"]
+    try:
+        runpy.run_module(mod, run_name="__main__")
+    except SystemExit as e:
+        assert e.code == 0, e.code
+import mmmot_tpu_torch.deploy
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
+"""
+
+
+def test_serve_and_export_cli_help_without_jax_or_ml_dtypes():
+    assert '"ml_dtypes")' in SERVE_EXPORT_HELP
+    proc = subprocess.run([sys.executable, "-c", SERVE_EXPORT_HELP],
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "--streams" in proc.stdout and "--exported" in proc.stdout
+    assert "--window" in proc.stdout and "--int8" in proc.stdout
