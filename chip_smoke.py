@@ -11,9 +11,11 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
 
 1. environment: torch, the GPU, and nvidia-smi's name and power limit;
    no CUDA device is an error;
-2. build: the CUDA kernels of ``mmmot_tpu_torch/csrc`` with nvcc;
+2. build: the CUDA kernels of ``mmmot_tpu_torch/csrc`` (``affinity.cu``,
+   ``int8_conv.cu``) with nvcc, one process a source, started together;
    then each kernel's registers, shared memory and spills (ptxas) and its
-   tensor-core instructions (cuobjdump -sass, where the toolkit has it);
+   tensor-core instructions (cuobjdump -sass, where the toolkit has it:
+   HMMA / HGMMA, IMMA for int8);
 3. kernel vs plain: the fused affinity kernel against its plain PyTorch
    version at the flagship shapes (K=3, N=32, D=H=512, hh=256) for B=16
    and B=512 frame pairs, in float32 and bfloat16, with holed masks, an
@@ -129,8 +131,31 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    B=1 N=64); (e) ``python -m mmmot_tpu_torch.cli.serve`` as a GPU
    subprocess, ``--exported --warmup`` and then ``--streams 2``, driven
    through the NDJSON protocol.  Its JSON line ``{"serving": ...}``
-   precedes the kernel line, which lists the three serving shapes as
-   entries of their own.
+   follows, and the kernel line lists the three serving shapes as
+   entries of their own;
+11. int8 (``full_mmmot_int8``: the VGG16 trunk in int8 through
+   ``csrc/int8_conv.cu``): (a) at VGG16's 13 conv shapes at 224², on 32
+   real crops of the tree quantised by the trunk calibrated on the tree,
+   each layer's kernel output exactly equal to its plain version (a
+   float64 conv), with kernel, plain, ``torch._int_mm`` (the product
+   alone over the im2col'd input) and cuDNN bf16 conv times and the
+   bound (int8 1,979 TOP/s, 3.35 TB/s); (b) ``tiny_debug`` float32 with
+   an int8 trunk calibrated once on the tree, its first 20 frames,
+   window 8, CPU against GPU: result files byte-equal; (c) phase 7's
+   calibrated seed-0 weights, the trunk calibrated on the tree: the
+   int8 embeddings of the real crops against the bf16 trunk's (cosine
+   above 0.99, relative norm below 0.1), the bf16 runner and then
+   ``cli/track --config full_mmmot_int8`` over the tree (S=2, window
+   64; no detection dropped, finite scores, one affinity launch a window,
+   13 int8 conv launches an extraction; ids against the bf16 runner's,
+   printed), the runner's largest extraction chunk (up to 256 crops)
+   through the 13 layers, kernel exactly equal to the plain version at
+   that shape, one window split as in phase 6; (d) ``cli/export --int8``
+   of those weights, calibrated on the tree, served by
+   ``DeployedTracker`` over 20 frames of 0000 (one affinity and 13 int8
+   launches a frame; latency p50/p90).  Its JSON line ``{"int8": ...}``
+   precedes the kernel line, whose last entry is the int8 conv (the 13
+   layers summed, each in ``layers``).
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -145,6 +170,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -170,6 +196,7 @@ from mmmot_tpu_torch.train.parity import step_agreement
 from mmmot_tpu_torch.train.trainer import create_train_state, train_step
 
 T0 = time.time()
+KERNELS = ("affinity", "int8_conv")     # the sources of csrc/
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
 # outside them, HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -422,20 +449,23 @@ def check_kernel(net, dev):
 
 def compiled_code():
     """Registers, shared memory and spills of each kernel from the
-    ptxas log of this process's build, and the tensor-core instructions
-    (HMMA / HGMMA) in each kernel's SASS where cuobjdump is present."""
-    log = kbuild.build_logs.get("affinity")
-    ptxas = kbuild.ptxas_summary(log) if log else None
-    for name, info in (ptxas or {}).items():
+    ptxas logs of this process's builds, and the tensor-core
+    instructions (HMMA / HGMMA, IMMA for int8) in each kernel's SASS
+    where cuobjdump is present."""
+    ptxas, counts = {}, {}
+    for src in KERNELS:
+        log = kbuild.build_logs.get(src)
+        ptxas.update(kbuild.ptxas_summary(log) if log else {})
+        sass = kbuild.disassemble(kbuild.build(src))
+        if sass is None:
+            stage("cuobjdump: absent from the toolkit; SASS not counted")
+            continue
+        counts.update(kbuild.sass_counts(sass, ("HMMA", "HGMMA", "IMMA")))
+    for name, info in ptxas.items():
         stage(f"ptxas {name}: {info}")
-    sass = kbuild.disassemble(kbuild.build("affinity"))
-    if sass is None:
-        stage("cuobjdump: absent from the toolkit; SASS not counted")
-        return ptxas, None
-    counts = kbuild.sass_counts(sass)
     for name, c in counts.items():
         stage(f"sass {name}: {c}")
-    return ptxas, counts
+    return ptxas or None, counts or None
 
 
 def synthetic_frames(gen, dev, T_, H, W, M, N_, count_lo, count_hi):
@@ -789,23 +819,30 @@ def write_kitti_tree(root: str, seed: int = 0):
     return sum(T for _, T in RUNNER_SEQS)
 
 
-def runner_agreement(root: str, dev, tmp: str):
+def agreement_net(device):
+    """tiny_debug with seeded random weights, the new/end logits lowered
+    so that links win over births and deaths."""
+    net = init_random_(TrackingNet(tiny_debug().model, device=device), 7)
+    with torch.no_grad():
+        for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+            head.dense_1.bias.fill_(-3.0)
+    return net
+
+
+def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner"):
     """tiny_debug float32 on the tree's first frames, window 8, two
     sequences per call, on the CPU (plain versions) and on the GPU
-    (kernels): the result and summary files must be byte-equal."""
+    (kernels): the result and summary files must be byte-equal.  ``nets``
+    {device: net} (default ``agreement_net`` on each) share weights."""
     import dataclasses
     import os
 
-    cfg = tiny_debug()
-    data = dataclasses.replace(cfg.data, root=root)
+    data = dataclasses.replace(tiny_debug().data, root=root)
+    nets = nets or {d: agreement_net(d) for d in ("cpu", dev)}
     files = {}
-    for device in ("cpu", dev):
-        net = init_random_(TrackingNet(cfg.model, device=device), 7)
-        with torch.no_grad():           # favour links over new/end
-            for head in (net.new_end.new_mlp, net.new_end.end_mlp):
-                head.dense_1.bias.fill_(-3.0)
+    for device, net in nets.items():
         before = fused_affinity.launches
-        out = os.path.join(tmp, f"agree_{torch.device(device).type}")
+        out = os.path.join(tmp, f"{tag}_agree_{torch.device(device).type}")
         stats = track_kitti_sequences(
             TrackingModule(net), data, out, window=AGREE_WINDOW,
             batch_sequences=RUNNER_S, max_frames=AGREE_FRAMES)
@@ -823,7 +860,7 @@ def runner_agreement(root: str, dev, tmp: str):
     for name in cpu:
         if cpu[name] != gpu[name]:
             raise AssertionError(f"{name}: GPU result differs from the CPU's")
-    stage(f"runner agreement: tiny_debug f32, {AGREE_FRAMES} frames x "
+    stage(f"{tag} agreement: tiny_debug f32, {AGREE_FRAMES} frames x "
           f"{RUNNER_S} sequences, window {AGREE_WINDOW}: {len(cpu)} files "
           "byte-equal on CPU and GPU")
     return {"frames": AGREE_FRAMES, "window": AGREE_WINDOW,
@@ -2331,6 +2368,419 @@ def serving_phase(dev, smi: str, root: str, tmp: str):
             "noisy": noisy, "cli": cli, "gpu": smi}
 
 
+# Phase 11: the int8 appearance trunk (``full_mmmot_int8``).
+INT8_CROPS = 32
+INT8_SERVE_FRAMES = 20
+INT8_PEAK_OPS = 1979e12        # H100 SXM int8 tensor cores, dense
+INT8_LAUNCHES = 13             # VGG16's convs: launches per extraction
+
+
+def real_crops(root: str, dev, n: int, crop):
+    """The first ``n`` detections of sequence 0000's first 8 frames, cut
+    and normalised by the tracker's own preprocessing."""
+    import dataclasses
+
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_batched,
+                                                 normalize_crops)
+
+    a = KittiTrackingDataset(dataclasses.replace(full_mmmot().data,
+                                                 root=root),
+                             max_cloud_points=4096).load_sequence(
+        "0000", max_frames=8)
+    dm = torch.as_tensor(a.det_mask, device=dev)
+    with torch.inference_mode():
+        c = crop_and_resize_batched(
+            torch.as_tensor(a.images, device=dev).float(),
+            torch.as_tensor(a.boxes, device=dev), crop, dm)
+        c = normalize_crops(c, scale=1.0 / 255.0)[dm]
+    if len(c) < n:
+        raise AssertionError(f"only {len(c)} crops in 8 frames, need {n}")
+    return c[:n].contiguous()
+
+
+def int8_layer_check(xq, wq, m, b, label: str):
+    """(a) One conv shape: the kernel against its plain version (exactly
+    equal), their times, the bound, and two yardsticks: ``torch._int_mm``
+    over the im2col'd input (the product alone, K padded as the kernel
+    pads it) and the bf16 cuDNN conv of the float trunk at that shape."""
+    import torch.nn.functional as F
+
+    from mmmot_tpu_torch.kernels.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain, unpack_weights)
+
+    n, H, W, cin = xq.shape
+    cout, kp = wq.shape
+    got = int8_conv3x3_requant(xq, wq, m, b)
+    want = int8_conv3x3_requant_plain(xq, wq, m, b)
+    torch.cuda.synchronize()
+    err = int((got.int() - want.int()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"int8 conv {label}: {int((got != want).sum())} "
+                             f"of {got.numel()} outputs differ (max {err})")
+    live = float((got > 0).float().mean())
+    del want
+    ms, call_ms = cuda_ms(lambda: int8_conv3x3_requant(xq, wq, m, b), 10)
+    plain_ms, plain_call_ms = cuda_ms(
+        lambda: int8_conv3x3_requant_plain(xq, wq, m, b), 1)
+    torch.cuda.empty_cache()
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, ky:ky + H, kx:kx + W] for ky in range(3)
+                      for kx in range(3)], dim=-1).reshape(-1, 9 * cin)
+    cols = F.pad(cols, (0, kp - 9 * cin)).contiguous()
+    lib_ms, lib_call_ms = cuda_ms(lambda: torch._int_mm(cols, wq.t()), 5)
+    del cols, xp
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels-last NCHW
+    wb = unpack_weights(wq, cin).permute(3, 2, 0, 1).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn_ms, _ = cuda_ms(lambda: F.conv2d(xb, wb, padding=1), 5)
+    del xb, wb
+    torch.cuda.empty_cache()
+    pixels = n * H * W
+    ops = 2.0 * pixels * 9 * cin * cout
+    nbytes = pixels * cin + cout * 9 * cin + 8 * cout + pixels * cout
+    t_ops, t_bytes = ops / INT8_PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    r = {"layer": label, "n": n, "hw": [H, W], "cin": cin, "cout": cout,
+         "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+         "plain_call_ms": plain_call_ms, "library_ms": lib_ms,
+         "library_call_ms": lib_call_ms, "cudnn_bf16_ms": cudnn_ms,
+         "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
+         "bytes_ms": t_bytes,
+         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+         "gops": ops / 1e9, "tops": ops / ms / 1e9, "max_abs_err": err,
+         "nonzero_share": live}
+    stage(f"int8 conv {label} [{n}, {H}, {W}, {cin}] -> {cout}: equal, "
+          f"kernel {ms:.4f} ms ({r['tops']:.1f} TOP/s; with the host "
+          f"{call_ms:.4f}) plain {plain_ms:.4f} ms _int_mm {lib_ms:.4f} ms "
+          f"cuDNN bf16 {cudnn_ms:.4f} ms bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}); {live:.3f} of the outputs > 0")
+    return got, r
+
+
+def int8_kernel_check(quant, crops):
+    """(a) VGG16's 13 conv shapes at 224², on the 32 real crops quantised
+    by the calibrated tree: each layer's own input map (the trunk's
+    chain, the pools on int8) through ``int8_layer_check``."""
+    from mmmot_tpu_torch.models.quantize import max_pool_int8, quantize_input
+
+    xq = quantize_input(quant, crops)
+    layers = []
+    with torch.inference_mode():
+        for op in quant.ops:
+            if op[0] == "pool":
+                xq = max_pool_int8(xq)
+            elif op[0] == "conv":
+                xq, r = int8_layer_check(xq, *quant.layer(op[1]),
+                                         f"conv_{op[1]}")
+                layers.append(r)
+    total = {k: sum(r[k] for r in layers)
+             for k in ("ms", "call_ms", "plain_ms", "library_ms",
+                       "cudnn_bf16_ms", "bound_ms", "ops_ms", "bytes_ms",
+                       "gops")}
+    stage(f"int8 trunk, {len(layers)} convs on {crops.shape[0]} crops: "
+          f"kernel {total['ms']:.3f} ms for {total['gops']:.1f} GOP, plain "
+          f"{total['plain_ms']:.1f} ms, _int_mm {total['library_ms']:.3f} "
+          f"ms, cuDNN bf16 {total['cudnn_bf16_ms']:.3f} ms, bound "
+          f"{total['bound_ms']:.4f} ms")
+    return {"crops": int(crops.shape[0]), "layers": layers, "total": total}
+
+
+def int8_chunk_check(quant, chunk):
+    """(c) The runner's own shape: the largest extraction chunk that the
+    int8 runner handed its trunk (``chunk``: its crops and detection
+    mask), each of the 13 layers through the kernel and the plain version
+    on the chunk's own maps, exactly equal; the kernel's and the plain
+    version's device times at that shape."""
+    from mmmot_tpu_torch.kernels.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain)
+    from mmmot_tpu_torch.models.quantize import max_pool_int8, quantize_input
+
+    crops = chunk["crops"]
+    layers = []
+    with torch.inference_mode():
+        xq = quantize_input(quant, crops)
+        for op in quant.ops:
+            if op[0] == "pool":
+                xq = max_pool_int8(xq)
+            elif op[0] == "conv":
+                args = quant.layer(op[1])
+                n, H, W, cin = xq.shape
+                got = int8_conv3x3_requant(xq, *args)
+                want = int8_conv3x3_requant_plain(xq, *args)
+                err = int((got.int() - want.int()).abs().max())
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"int8 runner chunk conv_{op[1]} [{n}, {H}, {W}, "
+                        f"{cin}]: {int((got != want).sum())} of "
+                        f"{got.numel()} outputs differ (max {err})")
+                del want
+                ms, _ = cuda_ms(lambda: int8_conv3x3_requant(xq, *args), 3)
+                plain_ms, _ = cuda_ms(
+                    lambda: int8_conv3x3_requant_plain(xq, *args), 1)
+                torch.cuda.empty_cache()
+                layers.append({"layer": f"conv_{op[1]}", "n": n,
+                               "hw": [H, W], "cin": cin,
+                               "cout": int(got.shape[-1]),
+                               "max_abs_err": err, "ms": ms,
+                               "plain_ms": plain_ms})
+                xq = got
+    result = {"crops": int(crops.shape[0]),
+              "real_crops": int(chunk["mask"].sum()),
+              "max_abs_err": max(r["max_abs_err"] for r in layers),
+              "ms": sum(r["ms"] for r in layers),
+              "plain_ms": sum(r["plain_ms"] for r in layers),
+              "layers": layers}
+    stage(f"int8 runner chunk of {result['crops']} crops "
+          f"({result['real_crops']} real): {len(layers)} convs equal to the "
+          f"plain version, kernel {result['ms']:.3f} ms, plain "
+          f"{result['plain_ms']:.1f} ms")
+    return result
+
+
+def int8_agreement(root: str, dev, tmp: str):
+    """(b) ``runner_agreement`` with an int8 trunk: tiny_debug widths in
+    float32, the trunk calibrated once on the tree on the CPU and moved
+    to the GPU; the GPU run must launch the int8 conv."""
+    import copy
+    import dataclasses
+
+    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
+    from mmmot_tpu_torch.models.quantize import quantize_for_inference
+
+    cfg = tiny_debug()
+    cpu = agreement_net("cpu")
+    quantize_for_inference(cpu, dataclasses.replace(cfg.data, root=root))
+    gpu = TrackingNet(cfg.model, device=dev)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu.quant_int8 = copy.deepcopy(cpu.quant_int8).to(dev)
+    before = int8_conv3x3_requant.launches     # the CPU run counts none
+    result = runner_agreement(root, dev, tmp, {"cpu": cpu, dev: gpu},
+                              "int8")
+    result["gpu_int8_launches"] = int8_conv3x3_requant.launches - before
+    if not result["gpu_int8_launches"]:
+        raise AssertionError("int8 agreement: no int8 conv launch on the GPU")
+    return result
+
+
+def int8_features(net, crops):
+    """(c) The int8 trunk's embeddings against the bf16 trunk's on real
+    crops: cosine per crop above 0.99 and relative norm below 0.1, the
+    reference's bounds (tests/test_quantize.py)."""
+    from mmmot_tpu_torch.models.quantize import quantized_appearance_apply
+
+    with torch.inference_mode():
+        ref = net.appear_net(crops).double()
+        q = quantized_appearance_apply(net.quant_int8, net.appear_net, crops,
+                                       dtype=net.compute_dtype).double()
+    cos = (ref * q).sum(-1) / (ref.norm(dim=-1) * q.norm(dim=-1)).clamp_min(
+        1e-12)
+    rel = float((q - ref).norm() / ref.norm())
+    if not (torch.isfinite(q).all() and cos.min() > 0.99 and rel < 0.1):
+        raise AssertionError(f"int8 features: cosine min {cos.min():.5f}, "
+                             f"relative norm {rel:.5f}")
+    stage(f"int8 features vs bf16 on {len(crops)} real crops: cosine min "
+          f"{cos.min():.5f} mean {cos.mean():.5f}, relative norm {rel:.5f}")
+    return {"cos_min": float(cos.min()), "cos_mean": float(cos.mean()),
+            "rel_norm": rel}
+
+
+def int8_runner(net, root: str, tmp: str, weights: str):
+    """(c) The bf16 runner (the same weights, the trunk detached), then
+    ``cli/track --config full_mmmot_int8`` itself (it calibrates on the
+    tree after loading ``weights``) over the tree, S=2, window 64, with
+    every count set to 0 just before and read just after: no dropped
+    detections, finite scores, ids that follow the rules, one affinity
+    launch a window and 13 int8 conv launches an extraction; the ids
+    compared with the bf16 runner's (printed, not held: random
+    weights).  The largest extraction chunk's crops, its trunk and mask
+    are kept for ``int8_chunk_check``."""
+    import dataclasses
+
+    from mmmot_tpu_torch.cli.track import main as track_main
+    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
+    from mmmot_tpu_torch.models import tracking_net
+
+    data = dataclasses.replace(full_mmmot().data, root=root)
+    quant, net.quant_int8 = net.quant_int8, None
+    auction_lap.rounds = 0
+    bf16 = track_kitti_sequences(TrackingModule(net), data, f"{tmp}/int8_bf16",
+                                 window=RUNNER_WINDOW,
+                                 batch_sequences=RUNNER_S, evaluate=False)
+    bf16_rounds = auction_lap.rounds
+    net.quant_int8 = quant
+    calls = [0]
+    extract = TrackingNet.extract
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return extract(self, *args, **kw)
+
+    apply = tracking_net.quantized_appearance_apply
+    chunk = {}
+
+    def captured(quant, appear_net, crops, mask, dtype):
+        x = crops.reshape((-1,) + tuple(crops.shape[-3:]))
+        if len(x) > len(chunk.get("crops", ())):
+            chunk.update(crops=x.clone(), mask=mask.reshape(-1).clone(),
+                         quant=quant)
+        return apply(quant, appear_net, crops, mask, dtype)
+
+    fused_affinity.launches = int8_conv3x3_requant.launches = 0
+    auction_lap.rounds = 0
+    with patched(TrackingNet, "extract", counted), \
+            patched(tracking_net, "quantized_appearance_apply", captured):
+        stats = track_main(["--config", "full_mmmot_int8", "--data-root",
+                            root, "--weights", weights, "--result-path",
+                            f"{tmp}/int8_results", "--batch-sequences",
+                            str(RUNNER_S), "--window", str(RUNNER_WINDOW),
+                            "--no-eval"])
+    launches = {"fused_affinity": fused_affinity.launches,
+                "int8_conv3x3_requant": int8_conv3x3_requant.launches}
+    rounds = auction_lap.rounds
+    if launches["fused_affinity"] != stats["n_windows"]:
+        raise AssertionError(f"int8 runner: {launches} for "
+                             f"{stats['n_windows']} windows")
+    if launches["int8_conv3x3_requant"] != INT8_LAUNCHES * calls[0] or \
+            not calls[0]:
+        raise AssertionError(f"int8 runner: {launches} for {calls[0]} "
+                             "extractions")
+    if stats["n_dropped"] != 0:
+        raise AssertionError(f"int8 runner: n_dropped {stats['n_dropped']}")
+    equal = valid = 0
+    for seq, o in stats["outputs"].items():
+        if not np.isfinite(o["det_score"]).all():
+            raise AssertionError(f"int8 {seq}: non-finite det scores")
+        check_ids(torch.as_tensor(o["ids"]), torch.as_tensor(o["det_mask"]))
+        dm = o["det_mask"]
+        equal += int((o["ids"] == bf16["outputs"][seq]["ids"])[dm].sum())
+        valid += int(dm.sum())
+    counted_s = stats["window_s"][1:]
+    result = {"frames": stats["frames_loaded"], "windows": stats["n_windows"],
+              "fps": stats["fps"], "bf16_fps": bf16["fps"],
+              "window_ms": [1e3 * x for x in stats["window_s"]],
+              "bf16_window_ms": [1e3 * x for x in bf16["window_s"]],
+              "ms_per_window": 1e3 * sum(counted_s) / max(1, len(counted_s)),
+              "extractions": calls[0], "launches": launches,
+              "auction_rounds": rounds, "bf16_auction_rounds": bf16_rounds,
+              "ids_equal_bf16": equal, "valid": valid}
+    stage(f"int8 runner (cli/track --config full_mmmot_int8): "
+          f"{result['frames']} frames, {result['windows']} windows, "
+          f"{stats['fps']:.1f} FPS after the first window (bf16, same "
+          f"weights: {bf16['fps']:.1f}), launches {launches} over "
+          f"{calls[0]} extractions, {rounds} auction rounds (bf16 "
+          f"{bf16_rounds}); ids equal to the bf16 runner's at {equal} of "
+          f"{valid} detections")
+    return result, chunk
+
+
+def int8_serving(root: str, tmp: str, weights: str, dev):
+    """(d) ``cli/export --int8`` of the same weights, calibrated on the
+    tree, then ``DeployedTracker`` over 20 frames of sequence 0000 (full
+    scans): one affinity launch and 13 int8 conv launches a frame,
+    latency p50/p90 after 3 warm frames, the last frame's stages timed
+    as in phase 10 (b)."""
+    import dataclasses
+
+    from mmmot_tpu_torch.cli.export import main as export_main
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.deploy import DeployedTracker
+    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
+
+    art = f"{tmp}/int8_artifact"
+    t = time.perf_counter()
+    export_main(["--config", "full_mmmot", "--int8", "--weights", weights,
+                 "--out", art, "--calib-root", root,
+                 "--shape", f"{KITTI_H}x{KITTI_W}x{CLOUD_POINTS}"])
+    trk = DeployedTracker.load(art, device=dev)
+    load_s = time.perf_counter() - t
+    if not (trk.manifest["int8"] and trk.module.net.quant_int8 is not None):
+        raise AssertionError("int8 artifact: no int8 trunk after loading")
+    data = dataclasses.replace(full_mmmot().data, root=root,
+                               cloud_filter="none")
+    a = KittiTrackingDataset(data, max_cloud_points=CLOUD_POINTS
+                             ).load_sequence("0000",
+                                             max_frames=INT8_SERVE_FRAMES)
+    ms, launched = [], np.zeros(2, np.int64)
+    ids = np.full(a.det_mask.shape, -1, np.int64)
+    frames = tree_frames(a)
+    for t, (image, cloud, boxes, dm, proj) in enumerate(frames):
+        f0, q0 = fused_affinity.launches, int8_conv3x3_requant.launches
+        if t == len(frames) - 1:
+            with stage_timers(trk.module, serve_frame_stages(
+                    trk.module)) as (split, _):
+                got, scores = trk.step(image, cloud, boxes[dm], proj)
+        else:
+            t0 = time.perf_counter()
+            got, scores = trk.step(image, cloud, boxes[dm], proj)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        step = (fused_affinity.launches - f0,
+                int8_conv3x3_requant.launches - q0)
+        if step != (1, INT8_LAUNCHES):
+            raise AssertionError(f"int8 serve frame {t}: launches {step}")
+        launched += step
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"int8 serve frame {t}: non-finite scores")
+        ids[t, :len(got)] = got
+    check_ids(torch.as_tensor(ids), torch.as_tensor(a.det_mask))
+    lat = percentiles(ms[SERVE_WARM:])
+    stage(f"int8 serving: export + load {load_s:.1f} s, {len(frames)} frames "
+          f"through DeployedTracker, latency after {SERVE_WARM} warm frames "
+          f"{lat} ms, 1 affinity and {INT8_LAUNCHES} int8 conv launches a "
+          f"frame; split of the last frame {split} ms")
+    return {"export_and_load_s": load_s, "frames": len(frames),
+            "split_ms": split,
+            "latency_ms": lat, "latency_first_ms": ms[:SERVE_WARM],
+            "launches": {"fused_affinity": int(launched[0]),
+                         "int8_conv3x3_requant": int(launched[1])}}
+
+
+def int8_phase(dev, smi: str, root: str, tmp: str, runner):
+    """Phase 11: (a)-(d) above.  The full-width weights are phase 7's
+    (seed 0, heads calibrated on the tree) with the trunk calibrated on
+    the tree (``quantize_for_inference``)."""
+    import dataclasses
+
+    from mmmot_tpu_torch.compat.from_jax import save_npz, to_flax_variables
+    from mmmot_tpu_torch.config import full_mmmot_int8
+    from mmmot_tpu_torch.models.quantize import quantize_for_inference
+
+    agreement = int8_agreement(root, dev, tmp)
+    cfg = full_mmmot_int8()
+    net = init_random_(TrackingNet(cfg.model, device=dev), 0)
+    heads, _ = calibrate_heads(net, dataclasses.replace(
+        full_mmmot_noisy().data, root=root), dev)
+    weights = f"{tmp}/int8_weights.npz"
+    save_npz(weights, to_flax_variables(net))
+    t = time.perf_counter()
+    quantize_for_inference(net, dataclasses.replace(cfg.data, root=root))
+    calib_s = time.perf_counter() - t
+    crops = real_crops(root, dev, INT8_CROPS, cfg.model.appearance.crop_size)
+    kernel = int8_kernel_check(net.quant_int8, crops)
+    features = int8_features(net, crops)
+    del crops
+    torch.cuda.empty_cache()
+    run, chunk = int8_runner(net, root, tmp, weights)
+    runner_chunk = int8_chunk_check(chunk.pop("quant"), chunk)
+    del chunk
+    torch.cuda.empty_cache()
+    split, n_det, rounds, errs = runner_split(
+        TrackingModule(net), dataclasses.replace(cfg.data, root=root), dev,
+        f"{tmp}/int8_split")
+    stage(f"int8 runner split of window 1 (ms): {split}; bf16 (phase 6): "
+          f"{runner['split_ms']}")
+    del net
+    torch.cuda.empty_cache()
+    serving = int8_serving(root, tmp, weights, dev)
+    return {"agreement": agreement, "heads": heads, "calibration_s": calib_s,
+            "kernel": kernel, "runner_chunk": runner_chunk,
+            "features": features, "runner": run,
+            "split_ms": split, "split_detections": n_det,
+            "split_auction_rounds": rounds,
+            "split_kernel_vs_plain_max_err": errs,
+            "bf16_split_ms_phase6": runner["split_ms"], "serving": serving,
+            "gpu": smi}
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -2359,10 +2809,12 @@ def main(argv=None) -> int:
     stage(f"environment: {kind}; {smi}")
 
     t = time.time()
-    kbuild.build("affinity")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:   # one nvcc a source
+        list(pool.map(kbuild.build, KERNELS))
     stage(f"build {time.time() - t:.1f}s")
-    print(kbuild.build_logs.get("affinity", "(library reused)"),
-          file=sys.stderr)
+    for name in KERNELS:
+        print(kbuild.build_logs.get(name, f"({name}: library reused)"),
+              file=sys.stderr)
 
     ptxas, sass = compiled_code()
 
@@ -2388,6 +2840,8 @@ def main(argv=None) -> int:
         training = training_phase(dev, smi, root, tmp, profile)
         torch.cuda.empty_cache()
         serving = serving_phase(dev, smi, root, tmp)
+        torch.cuda.empty_cache()
+        int8 = int8_phase(dev, smi, root, tmp, runner)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -2422,7 +2876,11 @@ def main(argv=None) -> int:
                              "multistream_compact": serving["multistream"][
                                  "compact"]["launches"],
                              "noisy_serve_step": serving["noisy"][
-                                 "launches"]},
+                                 "launches"],
+                             "int8_runner": int8["runner"]["launches"][
+                                 "fused_affinity"],
+                             "int8_serve_step": int8["serving"]["launches"][
+                                 "fused_affinity"]},
         "max_abs_err": worst(bf["errs"]),
         "ms": bf["ms"], "plain_ms": bf["plain_ms"],
         "bound_ms": bf["bound_ms"], "bound_by": bf["bound_by"],
@@ -2438,7 +2896,10 @@ def main(argv=None) -> int:
         "float32": {"b16": at(torch.float32, T),
                     "b512": at(torch.float32, 512),
                     "entry_band": at(torch.float32, "entry")},
-        "ptxas": ptxas, "sass_tensor_core": sass,
+        "ptxas": {k: v for k, v in (ptxas or {}).items()
+                  if not k.startswith("int8")},
+        "sass_tensor_core": {k: v for k, v in (sass or {}).items()
+                             if not k.startswith("int8")},
     }
     bsc = kern_bias[torch.bfloat16, "scan"]
 
@@ -2506,8 +2967,43 @@ def main(argv=None) -> int:
     print(json.dumps({"quality": quality}))
     print(json.dumps({"lookalike": lookalike}))
     print(json.dumps({"training": training}))
+    k8 = int8["kernel"]
+    entry_int8 = {
+        "name": "int8_conv3x3_requant", "route": "cuda",
+        "source": "mmmot_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "mmmot_tpu/models/quantize.py:267 (the XLA int8 conv "
+                    "of quantized_trunk_stages; no Pallas kernel)",
+        "launches": int8["runner"]["launches"]["int8_conv3x3_requant"],
+        "launches_by_path": {
+            "int8_runner": int8["runner"]["launches"][
+                "int8_conv3x3_requant"],
+            "int8_agreement_gpu": int8["agreement"]["gpu_int8_launches"],
+            "int8_serve_step": int8["serving"]["launches"][
+                "int8_conv3x3_requant"]},
+        "max_abs_err": max([r["max_abs_err"] for r in k8["layers"]]
+                           + [int8["runner_chunk"]["max_abs_err"]]),
+        **{k: k8["total"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms", "call_ms",
+                                       "cudnn_bf16_ms")},
+        "bound_by": ("operations" if k8["total"]["ops_ms"]
+                     >= k8["total"]["bytes_ms"] else "bytes"),
+        "library_call": "torch._int_mm over the im2col'd input (the int8 "
+                        "product alone, per layer, summed)",
+        "dtype": "int8", "crops": k8["crops"],
+        "shapes": "the 13 VGG16 convs at 224², summed; per layer in "
+                  "'layers'",
+        "layers": k8["layers"],
+        "runner_chunk": {k: v for k, v in int8["runner_chunk"].items()
+                         if k != "layers"},
+        "ptxas": {k: v for k, v in (ptxas or {}).items()
+                  if k.startswith("int8")},
+        "sass_tensor_core": {k: v for k, v in (sass or {}).items()
+                             if k.startswith("int8")}}
     print(json.dumps({"serving": serving}))
-    print(json.dumps({"kernels": [entry, entry_bias] + serving_entries}))
+    print(json.dumps({"int8": {k: v for k, v in int8.items()
+                               if k != "kernel"}}))
+    print(json.dumps({"kernels": [entry, entry_bias] + serving_entries
+                      + [entry_int8]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

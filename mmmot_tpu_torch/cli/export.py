@@ -14,12 +14,22 @@ code, which its manifest names, so it has no compiled program beside the
 weights.  Weights come from
 ``--load-path`` (a checkpoint dir of the port's trainer), ``--weights``
 (flax variables as a flat numpy archive) or are random from ``--seed``.
-The model is built on the GPU unless ``--cpu`` is given.
+The model is built on the GPU unless ``--cpu`` is given.  ``--int8`` (or
+a preset with ``model.int8_appearance``, ``full_mmmot_int8``) quantises
+the appearance trunk to int8, calibrated on real crops of the KITTI tree
+at ``--calib-root`` (default: the preset's ``data.root``), and writes it
+into the artifact (``"int8": true``).
+
+    python -m mmmot_tpu_torch.cli.export --config full_mmmot_int8 \\
+        --load-path checkpoints/full_mmmot_best --out artifacts/int8 \\
+        --calib-root data/kitti_tracking
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
 
 
 def parse_args(argv=None):
@@ -62,8 +72,11 @@ def parse_args(argv=None):
                         "per-slot active mask; inactive slots carry their "
                         "state unchanged)")
     p.add_argument("--int8", action="store_true",
-                   help="quantize the appearance trunk to int8 (not "
-                        "ported: raises)")
+                   help="quantize the appearance trunk to int8 (also "
+                        "enabled by the config's model.int8_appearance): "
+                        "the calibrated int8 trunk is written into the "
+                        "artifact.  Calibrates on real crops from "
+                        "--calib-root (default: the config's data.root)")
     p.add_argument("--calib-root", default=None,
                    help="KITTI tree for --int8 calibration crops")
     p.add_argument("--cpu", action="store_true",
@@ -73,10 +86,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.int8:
-        raise NotImplementedError(
-            "--int8: the int8 appearance trunk is not ported to "
-            "mmmot_tpu_torch yet (ROADMAP Queue 1 item 12)")
     if args.window and args.streams:
         raise SystemExit("--window and --streams are mutually exclusive")
 
@@ -90,6 +99,18 @@ def main(argv=None):
     h, w, m = (int(x) for x in args.shape.split("x"))
     module = build_module(cfg, args.weights, args.seed,
                           "cpu" if args.cpu else "cuda", args.load_path)
+    if args.int8 or cfg.model.int8_appearance:
+        from mmmot_tpu_torch.models.quantize import quantize_for_inference
+
+        data_cfg = cfg.data
+        if args.calib_root:
+            data_cfg = dataclasses.replace(data_cfg, root=args.calib_root)
+        if not os.path.isdir(data_cfg.root):
+            raise SystemExit(
+                f"--int8 needs real calibration crops: no KITTI tree at "
+                f"{data_cfg.root!r} (point --calib-root at one)")
+        quantize_for_inference(module.net, data_cfg)
+        print(f"int8 appearance trunk calibrated on {data_cfg.root}")
     if args.streams:
         export_multistream_step(args.out, cfg, module, (h, w), m,
                                 args.streams, args.capacity)

@@ -7,6 +7,8 @@
         --data-root data/kitti_tracking --batch-sequences 2
     python -m mmmot_tpu_torch.cli.track --config full_mmmot_lookalike \\
         --data-root data/kitti_tracking --batch-sequences 2
+    python -m mmmot_tpu_torch.cli.track --config full_mmmot_int8 \\
+        --data-root data/kitti_tracking --batch-sequences 2
 
 Tracks the sequences of a KITTI tracking tree in windows
 (``tracker/kitti_runner.py``), writes one KITTI result txt per sequence
@@ -16,9 +18,12 @@ scores them with the devkit and HOTA (``summary_<cls>.txt``,
 ``mmmot_tpu_torch.config``, its association included
 (``full_mmmot_noisy``: the noisy-detector quality stack, reading
 ``detections/noisy/``; ``full_mmmot_lookalike``: that stack with GNN
-refine and the learned motion term, at 112² crops).  Weights come from
-``--load-path`` (a checkpoint directory of the port's trainer,
-``cli/train.py``: its latest step), ``--weights`` (a flat
+refine and the learned motion term, at 112² crops; ``full_mmmot_int8``:
+the flagship with its appearance trunk in int8).  ``--int8``, or a
+preset's ``model.int8_appearance``, quantises the trunk after the weights
+load, calibrated on real crops of the tree (``models/quantize.py``).
+Weights come from ``--load-path`` (a checkpoint directory of the port's
+trainer, ``cli/train.py``: its latest step), ``--weights`` (a flat
 ``params/...``, ``batch_stats/...`` numpy archive, see
 ``compat/from_jax.py::save_npz``) or are random from ``--seed``.
 The GPU is used unless ``--cpu`` is given.
@@ -32,7 +37,7 @@ import logging
 import os
 
 PRESETS = ("full_mmmot", "full_mmmot_ydet", "full_mmmot_noisy",
-           "full_mmmot_lookalike", "tiny_debug")
+           "full_mmmot_lookalike", "full_mmmot_int8", "tiny_debug")
 
 
 def parse_args(argv=None):
@@ -70,6 +75,11 @@ def parse_args(argv=None):
     p.add_argument("--submission-zip", default=None, metavar="ZIP",
                    help="package the result txts as a KITTI tracking "
                         "submission zip")
+    p.add_argument("--int8", action="store_true",
+                   help="quantize the appearance trunk to int8 before "
+                        "tracking (also enabled by the config's "
+                        "model.int8_appearance), calibrated on real crops "
+                        "from the data root")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions)")
     return p.parse_args(argv)
@@ -111,6 +121,14 @@ def main(argv=None):
             "a tree is not ported yet")
     module = build_module(cfg, args.weights, args.seed,
                           "cpu" if args.cpu else "cuda", args.load_path)
+    if args.int8 or cfg.model.int8_appearance:
+        from mmmot_tpu_torch.models.quantize import quantize_for_inference
+
+        quantize_for_inference(
+            module.net, cfg.data,
+            sequences=args.sequences.split(",") if args.sequences else None)
+        log.info("int8 appearance trunk enabled "
+                 "(calibrated on real crops from %s)", cfg.data.root)
 
     from mmmot_tpu_torch.tracker.kitti_runner import track_kitti_sequences
 

@@ -8,7 +8,10 @@ both sides).  The input is the JAX package's ``{"params": ...,
 JAX.  ``to_flax_variables`` goes the other way (the port's deployment
 artifacts store weights in the flax layout).  ``save_npz``/``load_npz``
 carry those dicts across as one flat numpy archive (the track CLI's
-``--weights``).
+``--weights``).  The int8 trunk's ``quant_int8`` tree (``in_scale``, a
+tuple of per-layer ``{"w", "m", "b"}`` dicts, a tuple of stage scales)
+crosses as ``quant_from_flax``; ``to_flax_variables`` adds it back when
+the net carries one.
 """
 
 from __future__ import annotations
@@ -71,11 +74,26 @@ def load_flax_variables(variables_np: Mapping, net) -> Dict[str, torch.Tensor]:
     return out
 
 
+def quant_from_flax(tree: Mapping, depth: int, device="cpu"):
+    """A ``QuantizedAppearance`` (VGG ``depth``) on ``device`` from the
+    reference's ``quant_int8`` tree of arrays; the conv weights are
+    repacked once into the kernel's layout."""
+    from mmmot_tpu_torch.models.quantize import QuantizedAppearance
+
+    layers = [{k: np.asarray(v[k]) for k in ("w", "m", "b")}
+              for v in tree["layers"]]
+    return QuantizedAppearance(
+        depth, np.asarray(tree["in_scale"], np.float32), layers,
+        [np.asarray(s, np.float32) for s in tree["stage_scales"]]
+    ).to(device)
+
+
 def to_flax_variables(net) -> Dict[str, Dict]:
     """The flax variables ``{"params": ..., "batch_stats": ...}`` of
     ``net`` (a ``TrackingNet``) as nested dicts of float32 numpy arrays:
     the exact inverse of :func:`load_flax_variables`.  A 1-D ``weight``
-    is a BatchNorm scale, a 2-D or 4-D one a Dense or conv kernel."""
+    is a BatchNorm scale, a 2-D or 4-D one a Dense or conv kernel.  A net
+    with an int8 trunk adds its ``quant_int8`` tree."""
     out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
     for key, t in net.state_dict().items():
         *path, leaf = key.split(".")
@@ -96,6 +114,8 @@ def to_flax_variables(net) -> Dict[str, Dict]:
         for p in path:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(arr)
+    if net.quant_int8 is not None:
+        out["quant_int8"] = net.quant_int8.to_flax()
     return out
 
 

@@ -2,7 +2,8 @@
 
 Only the knobs the flagship raw-frames path, the KITTI runner, the
 association quality stack, the look-alike stack (GNN refine, learned
-motion, the class gate) and training read are carried.  The values that the path
+motion, the class gate), the int8 appearance trunk and training read are
+carried.  The values that the path
 supports but does not vary (VGG with batch norm and skip pooling, subabs
 correlation, a 2-layer link head, dual softmax, v2 new/end heads with
 max pooling, ``add`` score fusion over the fused/image/lidar branches,
@@ -96,6 +97,11 @@ class ModelConfig:
     compute_dtype: str = "float32"     # "bfloat16" | "float32" (parity)
     remat: bool = False                # training: recompute the VGG trunk's
                                        # activations in the backward pass
+    int8_appearance: bool = False      # inference only: the VGG trunk in
+                                       # int8 (models/quantize.py),
+                                       # calibrated on the data root by the
+                                       # track and export CLIs; training
+                                       # ignores it
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
@@ -275,6 +281,16 @@ def full_mmmot() -> Config:
         data=DataConfig(max_dets=32, crop_size=(224, 224), point_len=512,
                         det_source="pointpillars"),
         train=FULL_TRAIN)
+
+
+def full_mmmot_int8() -> Config:
+    """``experiments/full_mmmot_int8/config.yaml``: the flagship with the
+    appearance trunk post-training quantised to int8 at inference
+    (``model.int8_appearance``)."""
+    base = full_mmmot()
+    return dataclasses.replace(
+        base, name="full_mmmot_int8",
+        model=dataclasses.replace(base.model, int8_appearance=True))
 
 
 def full_mmmot_b8() -> Config:

@@ -33,6 +33,12 @@ numpy has no bfloat16: a bfloat16 leaf is stored as its raw 2-byte
 records (``|V2``, what numpy writes for an ``ml_dtypes`` bfloat16 array)
 and read back through ``int16`` into a ``torch.bfloat16`` tensor, as
 the dtype names of the manifest's structure say.
+
+An int8 artifact (``"int8": true``, the export CLI's ``--int8``) adds
+the calibrated trunk to the weights as the reference's ``quant_int8``
+tree (``in_scale``, a tuple of per-layer ``{"w", "m", "b"}``, a tuple of
+stage scales); tuples and lists are tagged in the structure as the
+reference tags them, so int8 artifacts of either package load in both.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ import numpy as np
 import torch
 
 from mmmot_tpu_torch.compat.from_jax import (load_flax_variables,
+                                             quant_from_flax,
                                              to_flax_variables)
 from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_batched,
                                              normalize_crops)
@@ -100,30 +107,44 @@ def _to_numpy(x) -> np.ndarray:
 
 
 def _flatten_to_npz(tree, prefix=()) -> Dict[str, np.ndarray]:
-    """Nested dicts of arrays or tensors -> {path: numpy array}, the
-    path's parts joined by ``//``."""
-    if not isinstance(tree, dict):
+    """Nested dicts, tuples and lists of arrays or tensors -> {path:
+    numpy array}, the path's parts joined by ``//`` (a sequence entry
+    keyed by its index, as the reference keys it)."""
+    if isinstance(tree, dict):
+        children = tree.items()
+    elif isinstance(tree, (tuple, list)):
+        children = enumerate(tree)
+    else:
         return {_SEP.join(prefix): _to_numpy(tree)}
     flat = {}
-    for k, v in tree.items():
+    for k, v in children:
         flat.update(_flatten_to_npz(v, prefix + (str(k),)))
     return flat
 
 
 def _skeleton(tree) -> Any:
-    """The JSON structure record of nested dicts: dicts stay dicts,
-    leaves become their dtype name.  It keeps what npz keys alone lose:
-    empty subtrees and the bfloat16 dtype.  (The reference also tags
-    tuples and lists, which only its int8 weights hold.)"""
+    """The JSON structure record of a tree: dicts stay dicts, tuples and
+    lists become ``{"__tuple__": [...]}`` and ``{"__list__": [...]}``
+    (the reference's tags: JSON has no tuple), leaves become their dtype
+    name.  It keeps what npz keys alone lose: empty subtrees, sequence
+    nodes and the bfloat16 dtype."""
     if isinstance(tree, dict):
         return {k: _skeleton(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return {"__tuple__": [_skeleton(v) for v in tree]}
+    if isinstance(tree, list):
+        return {"__list__": [_skeleton(v) for v in tree]}
     return _dtype_name(tree)
 
 
 def _fill_from_npz(skel, npz, prefix=()) -> Any:
-    """Rebuild the nested dicts that ``skel`` describes from npz entries:
-    numpy arrays, and ``torch.bfloat16`` tensors for bfloat16 leaves."""
+    """Rebuild the tree that ``skel`` describes from npz entries: numpy
+    arrays, and ``torch.bfloat16`` tensors for bfloat16 leaves."""
     if isinstance(skel, dict):
+        for tag, kind in (("__tuple__", tuple), ("__list__", list)):
+            if tag in skel:
+                return kind(_fill_from_npz(v, npz, prefix + (str(i),))
+                            for i, v in enumerate(skel[tag]))
         return {k: _fill_from_npz(v, npz, prefix + (k,))
                 for k, v in skel.items()}
     arr = npz[_SEP.join(prefix)]
@@ -370,7 +391,8 @@ def save_artifact(out_dir: str, variables, state0, cfg,
     ``variables`` are flax-layout (``to_flax_variables``), ``state0`` the
     zero state of the ``kind`` exporter.  Unlike the reference's, it takes
     no exported program: the manifest names the step code
-    (``PROGRAMS``).  The port writes no int8 trunk (``"int8": false``)."""
+    (``PROGRAMS``).  ``"int8"`` says whether ``variables`` carry an int8
+    trunk (``quant_int8``)."""
     os.makedirs(out_dir, exist_ok=True)
     state0 = _state_to_dict(state0)
     np.savez(os.path.join(out_dir, ARTIFACT_WEIGHTS),
@@ -392,7 +414,7 @@ def save_artifact(out_dir: str, variables, state0, cfg,
         "max_dets": int(cfg.data.max_dets),
         "point_len": int(cfg.data.point_len),
         "crop_size": list(cfg.data.crop_size),
-        "int8": False,
+        "int8": "quant_int8" in variables,
         "torch_version": torch.__version__,
     }
     if extra:
@@ -460,6 +482,23 @@ def _read_manifest(path: str) -> Dict:
         return json.load(fh)
 
 
+def _load_weights(net, weights, int8: bool, what: str) -> None:
+    """Load flax-layout ``weights`` into ``net`` and, for an int8
+    artifact, attach its ``quant_int8`` trunk; raises where the manifest's
+    ``int8`` and the weights disagree."""
+    has_quant = "quant_int8" in weights
+    if int8 and not has_quant:
+        raise ValueError(f"{what}: the manifest says int8 but the weights "
+                         "hold no quant_int8 trunk")
+    if has_quant and not int8:
+        raise ValueError(f"{what}: the weights hold a quant_int8 trunk but "
+                         "the manifest does not say int8")
+    net.load_state_dict(load_flax_variables(weights, net))
+    net.quant_int8 = (quant_from_flax(weights["quant_int8"],
+                                      net.cfg.appearance.depth, net.device)
+                      if int8 else None)
+
+
 def _load(path: str, device):
     """(manifest, module, flax-layout weights, zero state dict) of the
     artifact at ``path``, the module on ``device``."""
@@ -467,10 +506,6 @@ def _load(path: str, device):
     from mmmot_tpu_torch.models.tracking_net import TrackingNet
 
     manifest = _read_manifest(path)
-    if manifest.get("int8"):
-        raise NotImplementedError(
-            f"{path!r} holds an int8 appearance trunk, which is not ported "
-            "to mmmot_tpu_torch yet (ROADMAP Queue 1 item 12)")
     cfg = _preset(manifest["config"])
     for key, want in (("max_dets", cfg.data.max_dets),
                       ("point_len", cfg.data.point_len),
@@ -481,7 +516,7 @@ def _load(path: str, device):
     net = TrackingNet(cfg.model, device=resolve_device(device))
     with np.load(os.path.join(path, manifest["weights"])) as z:
         weights = _fill_from_npz(manifest["weights_structure"], z)
-    net.load_state_dict(load_flax_variables(weights, net))
+    _load_weights(net, weights, bool(manifest.get("int8")), repr(path))
     module = TrackingModule(net, cfg.assoc)
     N = cfg.data.max_dets
     fresh = _state_to_dict(_fresh_state(module, N))
@@ -574,7 +609,8 @@ class _ArtifactProgram:
     def __call__(self, weights, state, *inputs):
         if weights is not self.weights:
             net = self.module.net
-            net.load_state_dict(load_flax_variables(weights, net))
+            _load_weights(net, weights, bool(self.manifest.get("int8")),
+                          "the weights handed to the call")
             self._bind(TrackingModule(net, self.module.assoc_cfg))
             self.weights = weights
         return self._program(state, *inputs)

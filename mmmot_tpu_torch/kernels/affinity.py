@@ -22,6 +22,7 @@ from typing import Dict
 
 import torch
 
+from mmmot_tpu_torch.kernels import check_tensor
 from mmmot_tpu_torch.kernels.build import build
 from mmmot_tpu_torch.models.affinity import correlation_tensor
 from mmmot_tpu_torch.models.layers import BN_EPS
@@ -134,18 +135,6 @@ def affinity_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
     return heads_plain(link, a, b, mask_prev, mask_curr, p)
 
 
-def _check(name, t, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def check_widths(N: int, D: int, H: int, hh: int) -> None:
     """Raise on widths the kernel does not tile: N slots up to 64 (two
     ballot words per mask), D a multiple of 16 (16-byte rows, k16 steps),
@@ -194,20 +183,20 @@ def affinity_launches(a, b, mask_prev, mask_curr,
     hh = params["wn1"].shape[-1]
     check_widths(N, D, H, hh)
     dev = a.device
-    _check("b", b, dev, cdt, (B, K, N, D))
-    _check("a", a, dev, cdt, (B, K, N, D))
-    _check("mask_prev", mask_prev, dev, torch.bool, (B, N))
-    _check("mask_curr", mask_curr, dev, torch.bool, (B, N))
+    check_tensor("b", b, dev, cdt, (B, K, N, D))
+    check_tensor("a", a, dev, cdt, (B, K, N, D))
+    check_tensor("mask_prev", mask_prev, dev, torch.bool, (B, N))
+    check_tensor("mask_curr", mask_curr, dev, torch.bool, (B, N))
     if link_bias is not None:
-        _check("link_bias", link_bias, dev, torch.float32, (B, N, N))
+        check_tensor("link_bias", link_bias, dev, torch.float32, (B, N, N))
     shapes = {"w1": (K, D, H), "b1": (K, H), "bn_mean": (K, H),
               "bn_inv": (K, H), "bn_scale": (K, H), "bn_bias": (K, H),
               "w2": (K, H, 1), "b2": (K,), "wn1": (D, hh), "wnp": (1, hh),
               "bn1": (hh,), "wn2": (hh, 1), "bn2": (1,), "we1": (D, hh),
               "wep": (1, hh), "be1": (hh,), "ew2": (hh, 1), "eb2": (1,)}
     for name, is_cdt in PARAM_SPEC:
-        _check(name, params[name], dev, cdt if is_cdt else torch.float32,
-               shapes[name])
+        check_tensor(name, params[name], dev,
+                     cdt if is_cdt else torch.float32, shapes[name])
     for name, t in (("a", a), ("b", b), ("w1", params["w1"]),
                     ("wn1", params["wn1"]), ("we1", params["we1"])):
         if t.data_ptr() % 16:      # read with 16-byte loads

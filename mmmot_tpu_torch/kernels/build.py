@@ -69,8 +69,13 @@ def build(name: str) -> Path:
 def _kernel_label(mangled: str) -> str:
     """``products_kernel<bf16>`` for a mangled kernel template instance
     (``...15products_kernelI13__nv_bfloat16E...``), ``finish_kernel<f32,
-    bias>`` for one whose bool argument is true (``...IfLb1EE...``), else
-    the name itself."""
+    bias>`` for one whose bool argument is true (``...IfLb1EE...``),
+    ``int8_conv3x3_kernel<vec>`` / ``<bytes>`` for the int8 conv's two
+    input paths (``...ILb1EE...`` / ``...ILb0EE...``), else the name
+    itself."""
+    m = re.search(r"(int8_conv3x3_kernel)ILb([01])EE", mangled)
+    if m:
+        return f"{m.group(1)}<{'vec' if m.group(2) == '1' else 'bytes'}>"
     m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Lb([01])E)?E",
                   mangled)
     if m is None:

@@ -7,7 +7,9 @@
 Module and parameter names follow the flax tree (``appear_net``,
 ``point_net``, ``fusion``, ``affinity_{fused,image,lidar}`` with their
 ``gnn_{r}`` rounds, ``motion``, ``new_end``, ``det_head``), so
-``compat.from_jax`` maps weights across by name.
+``compat.from_jax`` maps weights across by name.  An int8 trunk
+(``models/quantize.py``) attached as ``quant_int8`` takes the image
+branch of ``extract``; it is not part of the state dict.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from mmmot_tpu_torch.models.fusion import FusionModule
 from mmmot_tpu_torch.models.layers import MLP2
 from mmmot_tpu_torch.models.new_end import NewEndHead
 from mmmot_tpu_torch.models.pointnet import PointNet
+from mmmot_tpu_torch.models.quantize import quantized_appearance_apply
 from mmmot_tpu_torch.ops.masking import compact_indices, scatter_compact
 
 # Branches with their own link scorer, in kernel order (fused first).
@@ -56,6 +59,7 @@ class TrackingNet(nn.Module):
             self.motion = MotionScore(cfg.affinity.motion_dim)
         self.new_end = NewEndHead(d, cfg.new_end.hidden_dim, dt)
         self.det_head = MLP2(d, cfg.new_end.hidden_dim, 1, dt)
+        self.register_module("quant_int8", None)
         self.eval()
         self.to(resolve_device(device))
 
@@ -66,10 +70,24 @@ class TrackingNet(nn.Module):
     def extract(self, crops, points, point_mask, det_mask
                 ) -> Dict[str, torch.Tensor]:
         """Per-detection {"fused", "image", "lidar"} embeddings; leading
-        axes are free, the last input axes are [h, w, 3] / [P, C]."""
-        img = self.appear_net(crops, det_mask)
+        axes are free, the last input axes are [h, w, 3] / [P, C].  With
+        an int8 trunk attached (``quant_int8``) the image branch runs it
+        (``quantized_appearance_apply``), the reference's ``quant_int8``
+        branch of ``TrackingModule.extract``."""
+        if self.quant_int8 is not None:
+            img = quantized_appearance_apply(
+                self.quant_int8, self.appear_net, crops, det_mask,
+                self.compute_dtype)
+        else:
+            img = self.appear_net(crops, det_mask)
+        return self.extract_given_image(img, points, point_mask, det_mask)
+
+    def extract_given_image(self, img_feat, points, point_mask, det_mask
+                            ) -> Dict[str, torch.Tensor]:
+        """``extract`` with the image embeddings given: PointNet and
+        fusion only."""
         lidar = self.point_net(points, point_mask, det_mask)
-        return self.fusion(img, lidar, det_mask)
+        return self.fusion(img_feat, lidar, det_mask)
 
     def gnn_refine(self, feats_prev, feats_curr, mask_prev, mask_curr):
         """Each branch's embeddings after its ``gnn_rounds`` rounds of

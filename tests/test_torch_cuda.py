@@ -1,7 +1,8 @@
 """Checks of the port that need an NVIDIA GPU (marker ``cuda``): the
-fused affinity CUDA kernel against its plain version, and CPU/GPU
-agreement of the tiny tracker.  They skip without a GPU.  This file
-imports neither JAX nor the JAX package, so it runs on the GPU machine:
+fused affinity and int8 conv CUDA kernels against their plain versions,
+and CPU/GPU agreement of the tiny tracker (float and int8 trunks).  They
+skip without a GPU.  This file imports neither JAX nor the JAX package,
+so it runs on the GPU machine:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
@@ -180,3 +181,85 @@ def test_deployed_tracker_launches_the_kernel_once_per_step(gpu, tmp_path):
                 ids[d] = trk.step(image, cloud, boxes, proj)[0]
             assert fused_affinity.launches - before == (d == gpu)
         assert ids["cpu"] == ids[gpu]
+
+
+# (n, H, W, Cin, Cout): conv_0's Cin=3 and a narrow Cin (the byte-gather
+# path), Cin multiples of 32 (16-byte copies), pixel counts that leave a
+# ragged last tile, Cout below and above one 64-channel tile.
+INT8_SHAPES = [(3, 7, 9, 3, 8), (2, 5, 6, 8, 16), (1, 13, 11, 64, 64),
+               (2, 14, 14, 512, 512), (1, 3, 3, 32, 72), (4, 28, 28, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", INT8_SHAPES)
+def test_int8_conv_matches_plain(gpu, shape):
+    """The int8 conv kernel against its plain version (a float64 conv):
+    int8 outputs exactly equal, (a) on full-range int8 inputs with the
+    requant spread around [0, 127] (clamped at both ends), (b) on small
+    inputs with ``m`` 0.5 and ``b`` 0, where every odd accumulator is an
+    exact .5 tie that must round to even; one launch counted per call."""
+    from mmmot_tpu_torch.kernels.int8_conv import (
+        int8_conv3x3_requant, int8_conv3x3_requant_plain, pack_weights)
+
+    n, H, W, cin, cout = shape
+    gen = torch.Generator(device=gpu).manual_seed(cin + cout)
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=gpu,
+                             dtype=torch.int8)
+
+    acc_std = 73.3 ** 2 * (9 * cin) ** 0.5    # of uniform int8 products
+    m = 40.0 / acc_std * (0.5 + torch.rand(cout, generator=gen, device=gpu))
+    b = 60.0 * torch.rand(cout, generator=gen, device=gpu) - 10.0
+    # (b): acc / 2 plus an integer, centred in [0, 127] (E[acc] = 4.5 Cin).
+    cases = [(ints(-127, 128, (n, H, W, cin)),
+              ints(-127, 128, (3, 3, cin, cout)), m, b),
+             (ints(0, 3, (n, H, W, cin)), ints(0, 2, (3, 3, cin, cout)),
+              torch.full_like(m, 0.5),
+              torch.full_like(b, 60.0 - round(2.25 * cin)))]
+    for x, w, mm, bb in cases:
+        wq = pack_weights(w)
+        before = int8_conv3x3_requant.launches
+        got = int8_conv3x3_requant(x, wq, mm, bb)
+        torch.cuda.synchronize()
+        assert int8_conv3x3_requant.launches == before + 1
+        want = int8_conv3x3_requant_plain(x, wq, mm, bb)
+        assert got.shape == (n, H, W, cout) and got.dtype == torch.int8
+        assert torch.equal(got, want), (got.int() - want.int()).abs().max()
+        assert ((got > 0) & (got < 127)).float().mean() > 0.2
+
+
+def test_int8_trunk_cpu_equals_gpu(gpu):
+    """The tiny int8 trunk, calibrated once on the CPU and moved to the
+    GPU: every stage map equal bit for bit, 8 kernel launches (VGG11's
+    convs), the appearance embeddings within float32 tolerance (the
+    tail's matmuls sum in other orders) and masked rows exactly 0."""
+    import copy
+
+    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
+    from mmmot_tpu_torch.models.quantize import (quantized_appearance_apply,
+                                                 quantized_trunk_stages,
+                                                 with_int8_appearance)
+
+    cfg = tiny_debug()
+    cpu = init_random_(TrackingNet(cfg.model, device="cpu"), 2)
+    crops = torch.randn((12, 32, 32, 3), generator=torch.Generator()
+                        .manual_seed(0))
+    with_int8_appearance(cpu, crops)
+    net = TrackingNet(cfg.model, device=gpu)
+    net.load_state_dict(cpu.state_dict())
+    net.quant_int8 = copy.deepcopy(cpu.quant_int8).to(gpu)
+    before = int8_conv3x3_requant.launches
+    got = quantized_trunk_stages(net.quant_int8, crops.to(gpu))
+    torch.cuda.synchronize()
+    assert int8_conv3x3_requant.launches == before + 8
+    for (g, _), (w, _) in zip(got, quantized_trunk_stages(cpu.quant_int8,
+                                                          crops)):
+        assert torch.equal(g.cpu(), w)
+    mask = torch.arange(12) < 10
+    with f32_parity():
+        fg = quantized_appearance_apply(net.quant_int8, net.appear_net,
+                                        crops.to(gpu), mask.to(gpu))
+    fc = quantized_appearance_apply(cpu.quant_int8, cpu.appear_net, crops,
+                                    mask)
+    torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-5)
+    assert (fg[10:] == 0).all()

@@ -311,8 +311,8 @@ def test_port_artifact_layout_and_serving(models, port_artifact):
 
 
 def test_int8_artifact_is_refused(port_artifact, tmp_path):
-    """An artifact with an int8 trunk (the JAX package's ``--int8``)
-    raises instead of serving the float model."""
+    """An artifact whose manifest says int8 but whose weights hold no
+    ``quant_int8`` trunk raises instead of serving the float model."""
     import shutil
 
     out = str(tmp_path / "int8")
@@ -320,7 +320,8 @@ def test_int8_artifact_is_refused(port_artifact, tmp_path):
     path = os.path.join(out, "manifest.json")
     man = json.load(open(path))
     json.dump(dict(man, int8=True), open(path, "w"))
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="says int8 but the weights hold no "
+                                         "quant_int8"):
         DeployedTracker.load(out, device="cpu")
 
 

@@ -65,7 +65,8 @@ def inputs(seed=0, lead=(2, N)):
     ("full_mmmot_ydet", "experiments/full_mmmot_ydet/config.yaml"),
     ("full_mmmot_noisy", "experiments/full_mmmot_noisy/config.yaml"),
     ("full_mmmot_lookalike",
-     "experiments/full_mmmot_lookalike/config.yaml")])
+     "experiments/full_mmmot_lookalike/config.yaml"),
+    ("full_mmmot_int8", "experiments/full_mmmot_int8/config.yaml")])
 def test_presets_match_yaml(name, yaml_path):
     """The Python presets carry the YAML values of every field they have."""
     import mmmot_tpu_torch.config as presets
@@ -82,6 +83,7 @@ def test_presets_match_yaml(name, yaml_path):
             assert getattr(p, f.name) == getattr(r, f.name), (sect, f.name)
     assert port.model.compute_dtype == ref.model.compute_dtype
     assert port.model.remat == ref.model.remat
+    assert port.model.int8_appearance == ref.model.int8_appearance
     assert dataclasses.asdict(port.train) == dataclasses.asdict(ref.train)
     for f in dataclasses.fields(port.data):
         want = getattr(ref.data, f.name)

@@ -96,8 +96,8 @@ def test_serve_warmup(tmp_path):
 def test_export_cli_and_serve_exported(tmp_path):
     """cli/export writes an artifact that --exported serves without
     --config (ready, track, reset, quit); its ids equal the in-process
-    ``DeployedTracker``'s.  --window with --streams exits, --int8
-    raises."""
+    ``DeployedTracker``'s.  --window with --streams exits, and so does
+    --int8 without a KITTI tree to calibrate on."""
     from mmmot_tpu_torch.cli.export import main as export_main
     from mmmot_tpu_torch.deploy import DeployedTracker
 
@@ -107,9 +107,10 @@ def test_export_cli_and_serve_exported(tmp_path):
     with pytest.raises(SystemExit):
         export_main(["--config", "tiny_debug", "--out", out, "--cpu",
                      "--window", "4", "--streams", "2"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(SystemExit, match="--int8 needs real calibration "
+                                         "crops: no KITTI tree"):
         export_main(["--config", "tiny_debug", "--out", out, "--cpu",
-                     "--int8"])
+                     "--int8", "--calib-root", str(tmp_path / "no_tree")])
     for t in range(2):
         write_frame(tmp_path / f"f{t}.npz", 10 + t, 3)
     svc = Service("--exported", out, "--cpu", "--warmup")
