@@ -15,7 +15,8 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    ``int8_conv.cu``) with nvcc, one process a source, started together;
    then each kernel's registers, shared memory and spills (ptxas) and its
    tensor-core instructions (cuobjdump -sass, where the toolkit has it:
-   HMMA / HGMMA, IMMA for int8);
+   HMMA / HGMMA, IMMA / IGMMA for int8; every int8 conv instance must
+   hold IGMMA, its wgmma products);
 3. kernel vs plain: the fused affinity kernel against its plain PyTorch
    version at the flagship shapes (K=3, N=32, D=H=512, hh=256) for B=16
    and B=512 frame pairs, in float32 and bfloat16, with holed masks, an
@@ -134,28 +135,36 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    follows, and the kernel line lists the three serving shapes as
    entries of their own;
 11. int8 (``full_mmmot_int8``: the VGG16 trunk in int8 through
-   ``csrc/int8_conv.cu``): (a) at VGG16's 13 conv shapes at 224², on 32
+   ``csrc/int8_conv.cu``, the pool after conv_1, 3, 6, 9 and 12 fused
+   into their epilogue): (a) at VGG16's 13 conv shapes at 224², on 32
    real crops of the tree quantised by the trunk calibrated on the tree,
    each layer's kernel output exactly equal to its plain version (a
    float64 conv), with kernel, plain, ``torch._int_mm`` (the product
-   alone over the im2col'd input) and cuDNN bf16 conv times and the
-   bound (int8 1,979 TOP/s, 3.35 TB/s); (b) ``tiny_debug`` float32 with
-   an int8 trunk calibrated once on the tree, its first 20 frames,
-   window 8, CPU against GPU: result files byte-equal; (c) phase 7's
-   calibrated seed-0 weights, the trunk calibrated on the tree: the
-   int8 embeddings of the real crops against the bf16 trunk's (cosine
-   above 0.99, relative norm below 0.1), the bf16 runner and then
-   ``cli/track --config full_mmmot_int8`` over the tree (S=2, window
-   64; no detection dropped, finite scores, one affinity launch a window,
-   13 int8 conv launches an extraction; ids against the bf16 runner's,
-   printed), the runner's largest extraction chunk (up to 256 crops)
-   through the 13 layers, kernel exactly equal to the plain version at
-   that shape, one window split as in phase 6; (d) ``cli/export --int8``
-   of those weights, calibrated on the tree, served by
-   ``DeployedTracker`` over 20 frames of 0000 (one affinity and 13 int8
-   launches a frame; latency p50/p90).  Its JSON line ``{"int8": ...}``
-   precedes the kernel line, whose last entry is the int8 conv (the 13
-   layers summed, each in ``layers``).
+   alone over the im2col'd input) and cuDNN bf16 conv times, the bound
+   (int8 1,979 TOP/s, 3.35 TB/s) and the launch plan (instance, tile,
+   shared memory); then the five fused-pool calls against the plain
+   fused version, exactly equal, their bound counting the pooled
+   output; (b) ``tiny_debug`` float32 with an int8 trunk calibrated
+   once on the tree, its first 20 frames, window 8, CPU against GPU:
+   result files byte-equal; (c) phase 7's calibrated seed-0 weights,
+   the trunk calibrated on the tree: the int8 embeddings of the real
+   crops against the bf16 trunk's (cosine above 0.99, relative norm
+   below 0.1), the bf16 runner and then ``cli/track --config
+   full_mmmot_int8`` over the tree (S=2, window 64; no detection
+   dropped, finite scores, one affinity launch a window, 13 int8 conv
+   launches an extraction: 12 of the main instance, 1 of the stem, 5
+   with the pool fused, and no separate ``max_pool_int8``; ids against
+   the bf16 runner's, printed), the runner's largest extraction chunk
+   (up to 256 crops) through the 13 layers as the trunk runs them,
+   kernel exactly equal to the plain version at that shape, with the
+   library yardsticks and the bound there, one window split as in phase
+   6; (d) ``cli/export --int8`` of those weights, calibrated on the
+   tree, served by ``DeployedTracker`` over 20 frames of 0000 (one
+   affinity and 13 int8 launches a frame, counted by kind as in (c);
+   latency p50/p90).  Its JSON line ``{"int8": ...}`` precedes the
+   kernel line, whose last entry is the int8 conv (the 13 unpooled
+   layers summed, each in ``layers``; the fused calls in
+   ``fused_pool_layers``; the runner chunk in ``runner_chunk``).
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -450,8 +459,9 @@ def check_kernel(net, dev):
 def compiled_code():
     """Registers, shared memory and spills of each kernel from the
     ptxas logs of this process's builds, and the tensor-core
-    instructions (HMMA / HGMMA, IMMA for int8) in each kernel's SASS
-    where cuobjdump is present."""
+    instructions (HMMA / HGMMA, IMMA / IGMMA for int8) in each kernel's
+    SASS where cuobjdump is present.  Every int8 conv instance must hold
+    ``IGMMA`` there (its products are ``wgmma``)."""
     ptxas, counts = {}, {}
     for src in KERNELS:
         log = kbuild.build_logs.get(src)
@@ -460,11 +470,16 @@ def compiled_code():
         if sass is None:
             stage("cuobjdump: absent from the toolkit; SASS not counted")
             continue
-        counts.update(kbuild.sass_counts(sass, ("HMMA", "HGMMA", "IMMA")))
+        counts.update(kbuild.sass_counts(sass, ("HMMA", "HGMMA", "IMMA",
+                                                "IGMMA")))
     for name, info in ptxas.items():
         stage(f"ptxas {name}: {info}")
     for name, c in counts.items():
         stage(f"sass {name}: {c}")
+    int8 = {k: c for k, c in counts.items() if k.startswith("int8_conv_")}
+    if counts and (not any(k.startswith("int8_conv_main") for k in int8)
+                   or any(c["IGMMA"] == 0 for c in int8.values())):
+        raise AssertionError(f"int8 conv SASS without wgmma (IGMMA): {int8}")
     return ptxas or None, counts or None
 
 
@@ -2373,6 +2388,16 @@ INT8_CROPS = 32
 INT8_SERVE_FRAMES = 20
 INT8_PEAK_OPS = 1979e12        # H100 SXM int8 tensor cores, dense
 INT8_LAUNCHES = 13             # VGG16's convs: launches per extraction
+# ... of them by instance and with the pool fused (conv_1, 3, 6, 9, 12)
+INT8_BY_KIND = {"main_launches": 12, "stem_launches": 1, "pool_launches": 5}
+
+
+def int8_counts_ok(counts: dict, per: int) -> bool:
+    """The int8 conv's launch counts are those of ``per`` VGG16
+    extractions."""
+    want = {"launches": INT8_LAUNCHES * per,
+            **{k: v * per for k, v in INT8_BY_KIND.items()}}
+    return counts == want
 
 
 def real_crops(root: str, dev, n: int, crop):
@@ -2399,20 +2424,62 @@ def real_crops(root: str, dev, n: int, crop):
     return c[:n].contiguous()
 
 
-def int8_layer_check(xq, wq, m, b, label: str):
-    """(a) One conv shape: the kernel against its plain version (exactly
-    equal), their times, the bound, and two yardsticks: ``torch._int_mm``
-    over the im2col'd input (the product alone, K padded as the kernel
-    pads it) and the bf16 cuDNN conv of the float trunk at that shape."""
+def int8_bound(n, H, W, cin, cout, pool=False):
+    """(bound_ms, ops_ms, bytes_ms, "operations"|"bytes") of one conv: its
+    int8 operations at the tensor cores' peak, or reading its input and
+    weights once and writing its (pooled) output once."""
+    pixels = n * H * W
+    ops = 2.0 * pixels * 9 * cin * cout
+    out = n * (H // 2) * (W // 2) if pool else pixels
+    nbytes = pixels * cin + cout * 9 * cin + 8 * cout + out * cout
+    t_ops, t_bytes = ops / INT8_PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (max(t_ops, t_bytes), t_ops, t_bytes,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def int8_yardsticks(xq, wq, reps: int):
+    """Device ms of the two library calls that compute the conv's product
+    (neither is called by the port): ``torch._int_mm`` over the im2col'd
+    input (K padded as the kernel pads it; with the host), and the bf16
+    cuDNN conv of the float trunk at that shape."""
     import torch.nn.functional as F
 
-    from mmmot_tpu_torch.kernels.int8_conv import (
-        int8_conv3x3_requant, int8_conv3x3_requant_plain, unpack_weights)
+    from mmmot_tpu_torch.kernels.int8_conv import unpack_weights
 
     n, H, W, cin = xq.shape
-    cout, kp = wq.shape
-    got = int8_conv3x3_requant(xq, wq, m, b)
-    want = int8_conv3x3_requant_plain(xq, wq, m, b)
+    kp = wq.shape[1]
+    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[:, ky:ky + H, kx:kx + W] for ky in range(3)
+                      for kx in range(3)], dim=-1).reshape(-1, 9 * cin)
+    cols = F.pad(cols, (0, kp - 9 * cin)).contiguous()
+    del xp
+    lib_ms, lib_call_ms = cuda_ms(lambda: torch._int_mm(cols, wq.t()), reps)
+    del cols
+    torch.cuda.empty_cache()
+    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels-last NCHW
+    wb = unpack_weights(wq, cin).permute(3, 2, 0, 1).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    cudnn_ms, _ = cuda_ms(lambda: F.conv2d(xb, wb, padding=1), reps)
+    del xb, wb
+    torch.cuda.empty_cache()
+    return lib_ms, lib_call_ms, cudnn_ms
+
+
+def int8_layer_check(xq, wq, m, b, label: str, pool=False, reps=10,
+                     plain_reps=1):
+    """One conv shape, with ``pool`` its fused-pool instance: the kernel
+    against its plain version (exactly equal), their times, the bound
+    and the launch plan (``conv_plan``)."""
+    from mmmot_tpu_torch.kernels.int8_conv import (
+        conv_plan, int8_conv3x3_requant, int8_conv3x3_requant_plain,
+        int8_conv3x3_requant_pool_plain)
+
+    plain = (int8_conv3x3_requant_pool_plain if pool
+             else int8_conv3x3_requant_plain)
+    n, H, W, cin = xq.shape
+    cout = wq.shape[0]
+    got = int8_conv3x3_requant(xq, wq, m, b, pool=pool)
+    want = plain(xq, wq, m, b)
     torch.cuda.synchronize()
     err = int((got.int() - want.int()).abs().max())
     if not torch.equal(got, want):
@@ -2420,120 +2487,125 @@ def int8_layer_check(xq, wq, m, b, label: str):
                              f"of {got.numel()} outputs differ (max {err})")
     live = float((got > 0).float().mean())
     del want
-    ms, call_ms = cuda_ms(lambda: int8_conv3x3_requant(xq, wq, m, b), 10)
-    plain_ms, plain_call_ms = cuda_ms(
-        lambda: int8_conv3x3_requant_plain(xq, wq, m, b), 1)
     torch.cuda.empty_cache()
-    xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
-    cols = torch.cat([xp[:, ky:ky + H, kx:kx + W] for ky in range(3)
-                      for kx in range(3)], dim=-1).reshape(-1, 9 * cin)
-    cols = F.pad(cols, (0, kp - 9 * cin)).contiguous()
-    lib_ms, lib_call_ms = cuda_ms(lambda: torch._int_mm(cols, wq.t()), 5)
-    del cols, xp
-    xb = xq.permute(0, 3, 1, 2).to(torch.bfloat16)     # channels-last NCHW
-    wb = unpack_weights(wq, cin).permute(3, 2, 0, 1).to(
-        torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    cudnn_ms, _ = cuda_ms(lambda: F.conv2d(xb, wb, padding=1), 5)
-    del xb, wb
+    ms, call_ms = cuda_ms(
+        lambda: int8_conv3x3_requant(xq, wq, m, b, pool=pool), reps)
+    plain_ms, plain_call_ms = cuda_ms(lambda: plain(xq, wq, m, b),
+                                      plain_reps)
     torch.cuda.empty_cache()
-    pixels = n * H * W
-    ops = 2.0 * pixels * 9 * cin * cout
-    nbytes = pixels * cin + cout * 9 * cin + 8 * cout + pixels * cout
-    t_ops, t_bytes = ops / INT8_PEAK_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    r = {"layer": label, "n": n, "hw": [H, W], "cin": cin, "cout": cout,
-         "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
-         "plain_call_ms": plain_call_ms, "library_ms": lib_ms,
-         "library_call_ms": lib_call_ms, "cudnn_bf16_ms": cudnn_ms,
-         "bound_ms": max(t_ops, t_bytes), "ops_ms": t_ops,
-         "bytes_ms": t_bytes,
-         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+    bound_ms, ops_ms, bytes_ms, bound_by = int8_bound(n, H, W, cin, cout,
+                                                      pool)
+    ops = 2.0 * n * H * W * 9 * cin * cout
+    plan = conv_plan(n, H, W, cin, cout, pool)
+    r = {"layer": label, "pool": pool, "n": n, "hw": [H, W], "cin": cin,
+         "cout": cout, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+         "plain_call_ms": plain_call_ms, "bound_ms": bound_ms,
+         "ops_ms": ops_ms, "bytes_ms": bytes_ms, "bound_by": bound_by,
          "gops": ops / 1e9, "tops": ops / ms / 1e9, "max_abs_err": err,
-         "nonzero_share": live}
-    stage(f"int8 conv {label} [{n}, {H}, {W}, {cin}] -> {cout}: equal, "
-          f"kernel {ms:.4f} ms ({r['tops']:.1f} TOP/s; with the host "
-          f"{call_ms:.4f}) plain {plain_ms:.4f} ms _int_mm {lib_ms:.4f} ms "
-          f"cuDNN bf16 {cudnn_ms:.4f} ms bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}); {live:.3f} of the outputs > 0")
+         "nonzero_share": live, "plan": plan,
+         # Product rows that no pixel of the map fills (a main tile has
+         # 128, a stem tile 64).
+         "padding_share": 1.0 - H * W / (
+             plan["tiles_x"] * plan["tiles_y"]
+             * (64 if plan["instance"] == "stem" else 128))}
+    stage(f"int8 conv {label}{' +pool' if pool else ''} [{n}, {H}, {W}, "
+          f"{cin}] -> {cout}: equal, kernel {ms:.4f} ms ({r['tops']:.1f} "
+          f"TOP/s; with the host {call_ms:.4f}) plain {plain_ms:.4f} ms "
+          f"bound {bound_ms:.4f} ms ({bound_by}); {plan['instance']} "
+          f"instance, tile {plan['tile_w']}x{plan['tile_h']} x "
+          f"{plan['tile_n']}, {plan['blocks']} blocks, {plan['k_bytes']} K "
+          f"bytes a stage{', halo' * plan['halo']}, {plan['smem']} B "
+          f"shared; {live:.3f} of the outputs > 0")
     return got, r
 
 
 def int8_kernel_check(quant, crops):
     """(a) VGG16's 13 conv shapes at 224², on the 32 real crops quantised
-    by the calibrated tree: each layer's own input map (the trunk's
-    chain, the pools on int8) through ``int8_layer_check``."""
-    from mmmot_tpu_torch.models.quantize import max_pool_int8, quantize_input
+    by the calibrated tree: each layer's own input map through
+    ``int8_layer_check`` unpooled, with the library yardsticks; then each
+    conv that a pool follows (conv_1, 3, 6, 9, 12) again with the pool
+    fused, whose output is the next layer's input."""
+    from mmmot_tpu_torch.models.quantize import quantize_input
 
     xq = quantize_input(quant, crops)
-    layers = []
+    layers, fused = [], []
+    ops = quant.ops
     with torch.inference_mode():
-        for op in quant.ops:
-            if op[0] == "pool":
-                xq = max_pool_int8(xq)
-            elif op[0] == "conv":
-                xq, r = int8_layer_check(xq, *quant.layer(op[1]),
-                                         f"conv_{op[1]}")
-                layers.append(r)
-    total = {k: sum(r[k] for r in layers)
-             for k in ("ms", "call_ms", "plain_ms", "library_ms",
-                       "cudnn_bf16_ms", "bound_ms", "ops_ms", "bytes_ms",
-                       "gops")}
+        for i, op in enumerate(ops):
+            if op[0] != "conv":
+                continue
+            args = quant.layer(op[1])
+            label = f"conv_{op[1]}"
+            got, r = int8_layer_check(xq, *args, label)
+            lib_ms, lib_call_ms, cudnn_ms = int8_yardsticks(xq, args[0], 5)
+            r.update(library_ms=lib_ms, library_call_ms=lib_call_ms,
+                     cudnn_bf16_ms=cudnn_ms)
+            stage(f"  {label}: _int_mm {lib_ms:.4f} ms, cuDNN bf16 "
+                  f"{cudnn_ms:.4f} ms")
+            layers.append(r)
+            if i + 1 < len(ops) and ops[i + 1][0] == "pool":
+                got, rp = int8_layer_check(xq, *args, label, pool=True)
+                fused.append(rp)
+            xq = got
+    keys = ("ms", "call_ms", "plain_ms", "library_ms", "cudnn_bf16_ms",
+            "bound_ms", "ops_ms", "bytes_ms", "gops")
+    total = {k: sum(r[k] for r in layers) for k in keys}
+    by_layer = {r["layer"]: r for r in layers}
+    by_layer.update({r["layer"]: r for r in fused})
+    path = {k: sum(r[k] for r in by_layer.values())
+            for k in ("ms", "bound_ms", "ops_ms", "bytes_ms")}
+    slower = [r["layer"] for r in layers if r["ms"] >= r["library_ms"]]
     stage(f"int8 trunk, {len(layers)} convs on {crops.shape[0]} crops: "
           f"kernel {total['ms']:.3f} ms for {total['gops']:.1f} GOP, plain "
           f"{total['plain_ms']:.1f} ms, _int_mm {total['library_ms']:.3f} "
           f"ms, cuDNN bf16 {total['cudnn_bf16_ms']:.3f} ms, bound "
-          f"{total['bound_ms']:.4f} ms")
-    return {"crops": int(crops.shape[0]), "layers": layers, "total": total}
+          f"{total['bound_ms']:.4f} ms; as the trunk runs it ({len(fused)} "
+          f"pools fused) {path['ms']:.3f} ms, bound {path['bound_ms']:.4f} "
+          f"ms; layers not below _int_mm: {slower or 'none'}")
+    return {"crops": int(crops.shape[0]), "layers": layers,
+            "fused_pool_layers": fused, "total": total, "path": path,
+            "not_below_int_mm": slower}
 
 
 def int8_chunk_check(quant, chunk):
     """(c) The runner's own shape: the largest extraction chunk that the
     int8 runner handed its trunk (``chunk``: its crops and detection
-    mask), each of the 13 layers through the kernel and the plain version
-    on the chunk's own maps, exactly equal; the kernel's and the plain
-    version's device times at that shape."""
-    from mmmot_tpu_torch.kernels.int8_conv import (
-        int8_conv3x3_requant, int8_conv3x3_requant_plain)
-    from mmmot_tpu_torch.models.quantize import max_pool_int8, quantize_input
+    mask) through the 13 layers as the trunk runs them (the pools fused),
+    each layer's kernel output exactly equal to its plain version on the
+    chunk's own maps; the kernel's, the plain version's and the library
+    yardsticks' device times and the bound at that shape."""
+    from mmmot_tpu_torch.models.quantize import quantize_input
 
     crops = chunk["crops"]
     layers = []
+    ops = quant.ops
     with torch.inference_mode():
         xq = quantize_input(quant, crops)
-        for op in quant.ops:
-            if op[0] == "pool":
-                xq = max_pool_int8(xq)
-            elif op[0] == "conv":
-                args = quant.layer(op[1])
-                n, H, W, cin = xq.shape
-                got = int8_conv3x3_requant(xq, *args)
-                want = int8_conv3x3_requant_plain(xq, *args)
-                err = int((got.int() - want.int()).abs().max())
-                if not torch.equal(got, want):
-                    raise AssertionError(
-                        f"int8 runner chunk conv_{op[1]} [{n}, {H}, {W}, "
-                        f"{cin}]: {int((got != want).sum())} of "
-                        f"{got.numel()} outputs differ (max {err})")
-                del want
-                ms, _ = cuda_ms(lambda: int8_conv3x3_requant(xq, *args), 3)
-                plain_ms, _ = cuda_ms(
-                    lambda: int8_conv3x3_requant_plain(xq, *args), 1)
-                torch.cuda.empty_cache()
-                layers.append({"layer": f"conv_{op[1]}", "n": n,
-                               "hw": [H, W], "cin": cin,
-                               "cout": int(got.shape[-1]),
-                               "max_abs_err": err, "ms": ms,
-                               "plain_ms": plain_ms})
-                xq = got
+        for i, op in enumerate(ops):
+            if op[0] != "conv":
+                continue
+            args = quant.layer(op[1])
+            pool = i + 1 < len(ops) and ops[i + 1][0] == "pool"
+            lib_ms, _, cudnn_ms = int8_yardsticks(xq, args[0], 3)
+            xq, r = int8_layer_check(xq, *args,
+                                     f"chunk conv_{op[1]}", pool=pool,
+                                     reps=3)
+            r.update(library_ms=lib_ms, cudnn_bf16_ms=cudnn_ms)
+            layers.append(r)
+    sums = {k: sum(r[k] for r in layers)
+            for k in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms",
+                      "bound_ms")}
     result = {"crops": int(crops.shape[0]),
               "real_crops": int(chunk["mask"].sum()),
               "max_abs_err": max(r["max_abs_err"] for r in layers),
-              "ms": sum(r["ms"] for r in layers),
-              "plain_ms": sum(r["plain_ms"] for r in layers),
+              "fused_pools": sum(r["pool"] for r in layers), **sums,
               "layers": layers}
     stage(f"int8 runner chunk of {result['crops']} crops "
-          f"({result['real_crops']} real): {len(layers)} convs equal to the "
-          f"plain version, kernel {result['ms']:.3f} ms, plain "
-          f"{result['plain_ms']:.1f} ms")
+          f"({result['real_crops']} real): {len(layers)} convs "
+          f"({result['fused_pools']} with the pool fused) equal to the plain "
+          f"version, kernel {sums['ms']:.3f} ms, plain {sums['plain_ms']:.1f}"
+          f" ms, _int_mm {sums['library_ms']:.3f} ms, cuDNN bf16 "
+          f"{sums['cudnn_bf16_ms']:.3f} ms, bound {sums['bound_ms']:.4f} ms")
     return result
 
 
@@ -2597,8 +2669,8 @@ def int8_runner(net, root: str, tmp: str, weights: str):
     import dataclasses
 
     from mmmot_tpu_torch.cli.track import main as track_main
-    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
-    from mmmot_tpu_torch.models import tracking_net
+    from mmmot_tpu_torch.kernels import int8_conv
+    from mmmot_tpu_torch.models import quantize, tracking_net
 
     data = dataclasses.replace(full_mmmot().data, root=root)
     quant, net.quant_int8 = net.quant_int8, None
@@ -2625,25 +2697,34 @@ def int8_runner(net, root: str, tmp: str, weights: str):
                          quant=quant)
         return apply(quant, appear_net, crops, mask, dtype)
 
-    fused_affinity.launches = int8_conv3x3_requant.launches = 0
+    pools = [0]
+    pool_op = quantize.max_pool_int8
+
+    def counted_pool(xq):
+        pools[0] += 1
+        return pool_op(xq)
+
+    fused_affinity.launches = 0
+    int8_conv.reset_launches()
     auction_lap.rounds = 0
     with patched(TrackingNet, "extract", counted), \
-            patched(tracking_net, "quantized_appearance_apply", captured):
+            patched(tracking_net, "quantized_appearance_apply", captured), \
+            patched(quantize, "max_pool_int8", counted_pool):
         stats = track_main(["--config", "full_mmmot_int8", "--data-root",
                             root, "--weights", weights, "--result-path",
                             f"{tmp}/int8_results", "--batch-sequences",
                             str(RUNNER_S), "--window", str(RUNNER_WINDOW),
                             "--no-eval"])
+    counts = int8_conv.launch_counts()
     launches = {"fused_affinity": fused_affinity.launches,
-                "int8_conv3x3_requant": int8_conv3x3_requant.launches}
+                "int8_conv3x3_requant": counts["launches"]}
     rounds = auction_lap.rounds
     if launches["fused_affinity"] != stats["n_windows"]:
         raise AssertionError(f"int8 runner: {launches} for "
                              f"{stats['n_windows']} windows")
-    if launches["int8_conv3x3_requant"] != INT8_LAUNCHES * calls[0] or \
-            not calls[0]:
-        raise AssertionError(f"int8 runner: {launches} for {calls[0]} "
-                             "extractions")
+    if not (calls[0] and int8_counts_ok(counts, calls[0])) or pools[0]:
+        raise AssertionError(f"int8 runner: {counts} and {pools[0]} "
+                             f"separate pools for {calls[0]} extractions")
     if stats["n_dropped"] != 0:
         raise AssertionError(f"int8 runner: n_dropped {stats['n_dropped']}")
     equal = valid = 0
@@ -2661,6 +2742,8 @@ def int8_runner(net, root: str, tmp: str, weights: str):
               "bf16_window_ms": [1e3 * x for x in bf16["window_s"]],
               "ms_per_window": 1e3 * sum(counted_s) / max(1, len(counted_s)),
               "extractions": calls[0], "launches": launches,
+              "int8_launches_by_kind": counts,
+              "separate_max_pool_int8": pools[0],
               "auction_rounds": rounds, "bf16_auction_rounds": bf16_rounds,
               "ids_equal_bf16": equal, "valid": valid}
     stage(f"int8 runner (cli/track --config full_mmmot_int8): "
@@ -2668,8 +2751,9 @@ def int8_runner(net, root: str, tmp: str, weights: str):
           f"{stats['fps']:.1f} FPS after the first window (bf16, same "
           f"weights: {bf16['fps']:.1f}), launches {launches} over "
           f"{calls[0]} extractions, {rounds} auction rounds (bf16 "
-          f"{bf16_rounds}); ids equal to the bf16 runner's at {equal} of "
-          f"{valid} detections")
+          f"{bf16_rounds}); int8 conv launches by kind {counts}, "
+          f"{pools[0]} separate pools; ids equal to the bf16 runner's at "
+          f"{equal} of {valid} detections")
     return result, chunk
 
 
@@ -2684,7 +2768,7 @@ def int8_serving(root: str, tmp: str, weights: str, dev):
     from mmmot_tpu_torch.cli.export import main as export_main
     from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
     from mmmot_tpu_torch.deploy import DeployedTracker
-    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
+    from mmmot_tpu_torch.kernels import int8_conv
 
     art = f"{tmp}/int8_artifact"
     t = time.perf_counter()
@@ -2703,8 +2787,9 @@ def int8_serving(root: str, tmp: str, weights: str, dev):
     ms, launched = [], np.zeros(2, np.int64)
     ids = np.full(a.det_mask.shape, -1, np.int64)
     frames = tree_frames(a)
+    int8_conv.reset_launches()
     for t, (image, cloud, boxes, dm, proj) in enumerate(frames):
-        f0, q0 = fused_affinity.launches, int8_conv3x3_requant.launches
+        f0, q0 = fused_affinity.launches, int8_conv.launch_counts()
         if t == len(frames) - 1:
             with stage_timers(trk.module, serve_frame_stages(
                     trk.module)) as (split, _):
@@ -2713,11 +2798,12 @@ def int8_serving(root: str, tmp: str, weights: str, dev):
             t0 = time.perf_counter()
             got, scores = trk.step(image, cloud, boxes[dm], proj)
             ms.append((time.perf_counter() - t0) * 1e3)
+        q1 = int8_conv.launch_counts()
         step = (fused_affinity.launches - f0,
-                int8_conv3x3_requant.launches - q0)
-        if step != (1, INT8_LAUNCHES):
+                {k: q1[k] - q0[k] for k in q1})
+        if step[0] != 1 or not int8_counts_ok(step[1], 1):
             raise AssertionError(f"int8 serve frame {t}: launches {step}")
-        launched += step
+        launched += (step[0], step[1]["launches"])
         if not np.isfinite(scores).all():
             raise AssertionError(f"int8 serve frame {t}: non-finite scores")
         ids[t, :len(got)] = got
@@ -2731,7 +2817,8 @@ def int8_serving(root: str, tmp: str, weights: str, dev):
             "split_ms": split,
             "latency_ms": lat, "latency_first_ms": ms[:SERVE_WARM],
             "launches": {"fused_affinity": int(launched[0]),
-                         "int8_conv3x3_requant": int(launched[1])}}
+                         "int8_conv3x3_requant": int(launched[1])},
+            "int8_launches_by_kind": int8_conv.launch_counts()}
 
 
 def int8_phase(dev, smi: str, root: str, tmp: str, runner):
@@ -2972,15 +3059,20 @@ def main(argv=None) -> int:
         "name": "int8_conv3x3_requant", "route": "cuda",
         "source": "mmmot_tpu_torch/csrc/int8_conv.cu",
         "replaces": "mmmot_tpu/models/quantize.py:267 (the XLA int8 conv "
-                    "of quantized_trunk_stages; no Pallas kernel)",
+                    "of quantized_trunk_stages, and with pool=True the "
+                    "max-pool at :261; no Pallas kernel)",
         "launches": int8["runner"]["launches"]["int8_conv3x3_requant"],
+        "launches_by_kind": {
+            "int8_runner": int8["runner"]["int8_launches_by_kind"],
+            "int8_serve_step": int8["serving"]["int8_launches_by_kind"]},
         "launches_by_path": {
             "int8_runner": int8["runner"]["launches"][
                 "int8_conv3x3_requant"],
             "int8_agreement_gpu": int8["agreement"]["gpu_int8_launches"],
             "int8_serve_step": int8["serving"]["launches"][
                 "int8_conv3x3_requant"]},
-        "max_abs_err": max([r["max_abs_err"] for r in k8["layers"]]
+        "max_abs_err": max([r["max_abs_err"] for r in k8["layers"]
+                            + k8["fused_pool_layers"]]
                            + [int8["runner_chunk"]["max_abs_err"]]),
         **{k: k8["total"][k] for k in ("ms", "plain_ms", "bound_ms",
                                        "library_ms", "call_ms",
@@ -2993,15 +3085,17 @@ def main(argv=None) -> int:
         "shapes": "the 13 VGG16 convs at 224², summed; per layer in "
                   "'layers'",
         "layers": k8["layers"],
-        "runner_chunk": {k: v for k, v in int8["runner_chunk"].items()
-                         if k != "layers"},
+        "fused_pool_layers": k8["fused_pool_layers"],
+        "as_the_trunk_runs": k8["path"],
+        "not_below_int_mm": k8["not_below_int_mm"],
+        "runner_chunk": int8["runner_chunk"],
         "ptxas": {k: v for k, v in (ptxas or {}).items()
                   if k.startswith("int8")},
         "sass_tensor_core": {k: v for k, v in (sass or {}).items()
                              if k.startswith("int8")}}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"int8": {k: v for k, v in int8.items()
-                               if k != "kernel"}}))
+                               if k not in ("kernel", "runner_chunk")}}))
     print(json.dumps({"kernels": [entry, entry_bias] + serving_entries
                       + [entry_int8]}))
     print(smi, flush=True)

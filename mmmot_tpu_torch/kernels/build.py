@@ -70,12 +70,16 @@ def _kernel_label(mangled: str) -> str:
     """``products_kernel<bf16>`` for a mangled kernel template instance
     (``...15products_kernelI13__nv_bfloat16E...``), ``finish_kernel<f32,
     bias>`` for one whose bool argument is true (``...IfLb1EE...``),
-    ``int8_conv3x3_kernel<vec>`` / ``<bytes>`` for the int8 conv's two
-    input paths (``...ILb1EE...`` / ``...ILb0EE...``), else the name
-    itself."""
-    m = re.search(r"(int8_conv3x3_kernel)ILb([01])EE", mangled)
+    ``int8_conv_main_kernel<128,64,false>`` / ``int8_conv_stem_kernel<64>``
+    for the int8 conv's instances and their arguments (output-channel
+    tile, K bytes a stage, HALO: ``...ILi128ELi64ELb0EEEv...``), else the
+    name itself."""
+    m = re.search(r"(int8_conv_(?:main|stem)_kernel)I((?:L[ib]\d+E)+)E",
+                  mangled)
     if m:
-        return f"{m.group(1)}<{'vec' if m.group(2) == '1' else 'bytes'}>"
+        args = [v if k == "i" else ("false", "true")[int(v)]
+                for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
+        return f"{m.group(1)}<{','.join(args)}>"
     m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Lb([01])E)?E",
                   mangled)
     if m is None:

@@ -8,7 +8,8 @@
   at 0 is the ReLU;
 - **compute**: each conv is ``kernels/int8_conv.py`` (the CUDA kernel on
   the GPU), int32 accumulation with the requantisation epilogue; the 2x2
-  max-pools run on int8;
+  max-pools run on int8, fused into the epilogue of the conv before
+  them;
 - the skip-pool tail (the 1x1 reduces, their BatchNorms and the
   projection) stays in float32 and reads the net's own weights, so a
   checkpoint needs no conversion.
@@ -39,7 +40,8 @@ from torch.nn import functional as F
 
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels.int8_conv import (int8_conv3x3_requant,
-                                               pack_weights, unpack_weights)
+                                               max_pool_int8, pack_weights,
+                                               unpack_weights)
 from mmmot_tpu_torch.models.appearance import trunk_ops
 from mmmot_tpu_torch.models.layers import BN_EPS, fma
 
@@ -267,14 +269,6 @@ def quantize_for_inference(net, data_cfg, sequences=None):
     return with_int8_appearance(net, calib)
 
 
-def max_pool_int8(xq: torch.Tensor) -> torch.Tensor:
-    """2x2 stride-2 VALID max-pool of an NHWC map, in its own dtype."""
-    n, H, W, C = xq.shape
-    h, w = H // 2, W // 2
-    x = xq[:, :2 * h, :2 * w].reshape(n, h, 2, w, 2, C)
-    return x.amax(dim=(2, 4))
-
-
 def quantize_input(quant: QuantizedAppearance, x) -> torch.Tensor:
     """Float crops [n, H, W, 3] -> int8: divided by ``in_scale``, rounded
     half to even, clipped to [-127, 127]."""
@@ -286,17 +280,19 @@ def quantized_trunk_stages(quant: QuantizedAppearance, x
                            ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Run the int8 trunk on float crops ``x`` [n, H, W, 3]: the input
     quantised (``quantize_input``), each conv ``int8_conv3x3_requant``,
-    each pool on int8 (``max_pool_int8``).
+    each pool on int8: fused into the conv before it (``pool=True``),
+    else ``max_pool_int8``.
     Returns ``[(int8 NHWC stage map, its dequant scale)]`` per stage."""
     xq = quantize_input(quant, x)
-    stages = []
-    for op in quant.ops:
-        if op[0] == "pool":
-            xq = max_pool_int8(xq)
+    stages, ops = [], quant.ops
+    for i, op in enumerate(ops):
+        if op[0] == "conv":
+            pool = i + 1 < len(ops) and ops[i + 1][0] == "pool"
+            xq = int8_conv3x3_requant(xq, *quant.layer(op[1]), pool=pool)
         elif op[0] == "stage":
             stages.append((xq, quant.stage_scale(len(stages))))
-        else:
-            xq = int8_conv3x3_requant(xq, *quant.layer(op[1]))
+        elif not (i and ops[i - 1][0] == "conv"):    # else fused above
+            xq = max_pool_int8(xq)
     return stages
 
 

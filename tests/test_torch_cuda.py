@@ -183,22 +183,36 @@ def test_deployed_tracker_launches_the_kernel_once_per_step(gpu, tmp_path):
         assert ids["cpu"] == ids[gpu]
 
 
-# (n, H, W, Cin, Cout): conv_0's Cin=3 and a narrow Cin (the byte-gather
-# path), Cin multiples of 32 (16-byte copies), pixel counts that leave a
-# ragged last tile, Cout below and above one 64-channel tile.
+# (n, H, W, Cin, Cout): conv_0's Cin=3 and a narrow Cin (the stem
+# instance), Cin multiples of 32 (the main instance, TMA stages of 32, 64
+# and 128 channels; Cin=96 takes three 32-channel stages a tap), pixel
+# counts that leave a ragged last tile, Cout below and above one
+# 64-channel tile (72: a second tile of 8 channels, 8-byte stores), a 7x7
+# map (odd: its pool drops the last row and column), conv_1's shape (64
+# channels at 224x224, 64-byte swizzle, the halo instance) and the halo
+# instance at 32 and 128 channels a stage (a ragged last row of tiles) and
+# with 128 output channels.  Each runs with and without the fused pool.
 INT8_SHAPES = [(3, 7, 9, 3, 8), (2, 5, 6, 8, 16), (1, 13, 11, 64, 64),
-               (2, 14, 14, 512, 512), (1, 3, 3, 32, 72), (4, 28, 28, 128, 256)]
+               (2, 14, 14, 512, 512), (1, 3, 3, 32, 72), (4, 28, 28, 128, 256),
+               (2, 7, 7, 512, 512), (2, 9, 12, 96, 72),
+               (1, 224, 224, 64, 64), (2, 10, 16, 32, 64),
+               (1, 20, 16, 128, 64), (2, 12, 16, 64, 128), (1, 8, 8, 32, 128)]
 
 
+@pytest.mark.parametrize("pool", [False, True])
 @pytest.mark.parametrize("shape", INT8_SHAPES)
-def test_int8_conv_matches_plain(gpu, shape):
-    """The int8 conv kernel against its plain version (a float64 conv):
-    int8 outputs exactly equal, (a) on full-range int8 inputs with the
-    requant spread around [0, 127] (clamped at both ends), (b) on small
-    inputs with ``m`` 0.5 and ``b`` 0, where every odd accumulator is an
-    exact .5 tie that must round to even; one launch counted per call."""
+def test_int8_conv_matches_plain(gpu, shape, pool):
+    """The int8 conv kernel against its plain version (a float64 conv,
+    and with ``pool`` its 2x2 VALID max-pool): int8 outputs exactly
+    equal, (a) on full-range int8 inputs with the requant spread around
+    [0, 127] (clamped at both ends) and ``m`` negative on every third
+    channel (a max taken before the requant would differ there), (b) on
+    small inputs with ``m`` 0.5 and ``b`` 0, where every odd accumulator
+    is an exact .5 tie that must round to even; one launch of the
+    instance ``conv_instance`` names counted per call."""
     from mmmot_tpu_torch.kernels.int8_conv import (
-        int8_conv3x3_requant, int8_conv3x3_requant_plain, pack_weights)
+        conv_instance, int8_conv3x3_requant, int8_conv3x3_requant_plain,
+        int8_conv3x3_requant_pool_plain, launch_counts, pack_weights)
 
     n, H, W, cin, cout = shape
     gen = torch.Generator(device=gpu).manual_seed(cin + cout)
@@ -209,6 +223,7 @@ def test_int8_conv_matches_plain(gpu, shape):
 
     acc_std = 73.3 ** 2 * (9 * cin) ** 0.5    # of uniform int8 products
     m = 40.0 / acc_std * (0.5 + torch.rand(cout, generator=gen, device=gpu))
+    m[2::3] *= -1.0
     b = 60.0 * torch.rand(cout, generator=gen, device=gpu) - 10.0
     # (b): acc / 2 plus an integer, centred in [0, 127] (E[acc] = 4.5 Cin).
     cases = [(ints(-127, 128, (n, H, W, cin)),
@@ -216,14 +231,22 @@ def test_int8_conv_matches_plain(gpu, shape):
              (ints(0, 3, (n, H, W, cin)), ints(0, 2, (3, 3, cin, cout)),
               torch.full_like(m, 0.5),
               torch.full_like(b, 60.0 - round(2.25 * cin)))]
+    plain = (int8_conv3x3_requant_pool_plain if pool
+             else int8_conv3x3_requant_plain)
+    out_hw = (H // 2, W // 2) if pool else (H, W)
     for x, w, mm, bb in cases:
         wq = pack_weights(w)
-        before = int8_conv3x3_requant.launches
-        got = int8_conv3x3_requant(x, wq, mm, bb)
+        before = launch_counts()
+        got = int8_conv3x3_requant(x, wq, mm, bb, pool=pool)
         torch.cuda.synchronize()
-        assert int8_conv3x3_requant.launches == before + 1
-        want = int8_conv3x3_requant_plain(x, wq, mm, bb)
-        assert got.shape == (n, H, W, cout) and got.dtype == torch.int8
+        after = launch_counts()
+        instance = conv_instance(cin)
+        assert {k: after[k] - before[k] for k in after} == {
+            "launches": 1, "main_launches": int(instance == "main"),
+            "stem_launches": int(instance == "stem"),
+            "pool_launches": int(pool)}
+        want = plain(x, wq, mm, bb)
+        assert got.shape == (n, *out_hw, cout) and got.dtype == torch.int8
         assert torch.equal(got, want), (got.int() - want.int()).abs().max()
         assert ((got > 0) & (got < 127)).float().mean() > 0.2
 
@@ -231,11 +254,11 @@ def test_int8_conv_matches_plain(gpu, shape):
 def test_int8_trunk_cpu_equals_gpu(gpu):
     """The tiny int8 trunk, calibrated once on the CPU and moved to the
     GPU: every stage map equal bit for bit, 8 kernel launches (VGG11's
-    convs), the appearance embeddings within float32 tolerance (the
+    convs; the 5 pools fused into the convs before them), the appearance embeddings within float32 tolerance (the
     tail's matmuls sum in other orders) and masked rows exactly 0."""
     import copy
 
-    from mmmot_tpu_torch.kernels.int8_conv import int8_conv3x3_requant
+    from mmmot_tpu_torch.kernels.int8_conv import launch_counts
     from mmmot_tpu_torch.models.quantize import (quantized_appearance_apply,
                                                  quantized_trunk_stages,
                                                  with_int8_appearance)
@@ -248,10 +271,12 @@ def test_int8_trunk_cpu_equals_gpu(gpu):
     net = TrackingNet(cfg.model, device=gpu)
     net.load_state_dict(cpu.state_dict())
     net.quant_int8 = copy.deepcopy(cpu.quant_int8).to(gpu)
-    before = int8_conv3x3_requant.launches
+    before = launch_counts()
     got = quantized_trunk_stages(net.quant_int8, crops.to(gpu))
     torch.cuda.synchronize()
-    assert int8_conv3x3_requant.launches == before + 8
+    after = launch_counts()
+    assert after["launches"] == before["launches"] + 8
+    assert after["pool_launches"] == before["pool_launches"] + 5
     for (g, _), (w, _) in zip(got, quantized_trunk_stages(cpu.quant_int8,
                                                           crops)):
         assert torch.equal(g.cpu(), w)

@@ -5,7 +5,11 @@ quantize.py``, ``kernels/int8_conv.py``) against the JAX package's
 from a seed.
 
 - The int8 conv's plain version against a numpy int64 reference, bit for
-  bit.
+  bit; its fused-pool version (``pool=True``) against that reference's
+  VALID 2x2 max, odd sides and negative ``m`` included; the wrapper's
+  choice of kernel instance by Cin and its refusals.
+- The trunk fuses every pool into the conv before it, and its stage maps
+  equal the unfused chain's.
 - On the JAX quant tree carried across (``compat.from_jax.
   quant_from_flax``), every int8 stage map bit for bit (the product is
   exact, the requant rounds once as XLA's jitted multiply-add does), and
@@ -38,9 +42,10 @@ from mmmot_tpu.tracker import TrackingModule as JTrackingModule
 from mmmot_tpu.tracker import track_sequence_from_frames as j_track
 from mmmot_tpu_torch.compat.from_jax import quant_from_flax
 from mmmot_tpu_torch.config import tiny_debug
-from mmmot_tpu_torch.kernels.int8_conv import (int8_conv3x3_requant,
-                                               int8_conv3x3_requant_plain,
-                                               pack_weights)
+from mmmot_tpu_torch.kernels import int8_conv as kint8
+from mmmot_tpu_torch.kernels.int8_conv import (
+    int8_conv3x3_requant, int8_conv3x3_requant_plain,
+    int8_conv3x3_requant_pool_plain, pack_weights)
 from mmmot_tpu_torch.models import quantize as pq
 from mmmot_tpu_torch.tracker.sequence import (track_sequence,
                                               track_sequence_from_frames)
@@ -145,6 +150,127 @@ def test_int8_conv_plain_matches_numpy(name):
                                             got[1].shape))
     else:
         assert 0 < (got.numpy() == 0).mean() < 1
+
+
+def numpy_pool(y):
+    """2x2 stride-2 VALID max of an NHWC array (odd last row/col dropped)."""
+    n, H, W, C = y.shape
+    h, w = H // 2, W // 2
+    return y[:, :2 * h, :2 * w].reshape(n, h, 2, w, 2, C).max(axis=(2, 4))
+
+
+@pytest.mark.parametrize("hw", [(6, 8), (7, 9), (5, 4), (3, 3)])
+def test_int8_conv_pool_plain_matches_numpy(hw):
+    """``int8_conv3x3_requant_pool_plain`` and the wrapper's ``pool=True``
+    on CPU tensors against the numpy reference's conv, requant and VALID
+    2x2 max, even and odd sides.  ``m`` is negative on every other
+    channel, where the requant is decreasing in ``acc``: a pool taken
+    before the requant gives other maps there (checked)."""
+    r = np.random.default_rng(hw[0] * 10 + hw[1])
+    cin, cout = 8, 16
+    x = r.integers(-127, 128, (2, *hw, cin)).astype(np.int8)
+    w = r.integers(-127, 128, (3, 3, cin, cout)).astype(np.int8)
+    m = (40.0 / (5400.0 * (9 * cin) ** 0.5)
+         * r.uniform(0.5, 1.5, cout)).astype(np.float32)
+    m[1::2] *= -1
+    b = r.uniform(20, 80, cout).astype(np.float32)
+    args = (torch.as_tensor(x), pack_weights(torch.as_tensor(w)),
+            torch.as_tensor(m), torch.as_tensor(b))
+    want = numpy_pool(numpy_conv_requant(x, w, m, b))
+    got = int8_conv3x3_requant_pool_plain(*args)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        int8_conv3x3_requant(*args, pool=True).numpy(), want)
+    # Pooling the accumulators first (max acc) is wrong where m < 0.
+    xp = np.pad(x.astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    H, W = hw
+    acc = sum(np.einsum("nhwc,co->nhwo", xp[:, ky:ky + H, kx:kx + W],
+                        w[ky, kx].astype(np.int64))
+              for ky in range(3) for kx in range(3))
+    early = np.clip(np.round(numpy_pool(acc).astype(np.float32) * m + b), 0,
+                    127).astype(np.int8)
+    assert (early != want)[..., 1::2].any()
+
+
+@pytest.mark.parametrize("cin, instance", [(3, "stem"), (8, "stem"),
+                                           (16, "stem"), (48, "stem"),
+                                           (32, "main"), (64, "main"),
+                                           (96, "main"), (512, "main")])
+def test_int8_conv_instance_by_cin(cin, instance):
+    """The wrapper's dispatch: the main (TMA, ``wgmma``) instance for Cin
+    a multiple of the K step, the stem otherwise; CPU tensors run the
+    plain version and launch (count) nothing."""
+    assert kint8.conv_instance(cin) == instance
+    r = np.random.default_rng(cin)
+    x = torch.as_tensor(r.integers(-127, 128, (1, 4, 5, cin)).astype(np.int8))
+    wq = pack_weights(torch.as_tensor(
+        r.integers(-127, 128, (3, 3, cin, 8)).astype(np.int8)))
+    m = torch.full((8,), 1e-4)
+    b = torch.full((8,), 30.0)
+    before = kint8.launch_counts()
+    assert torch.equal(int8_conv3x3_requant(x, wq, m, b),
+                       int8_conv3x3_requant_plain(x, wq, m, b))
+    assert torch.equal(int8_conv3x3_requant(x, wq, m, b, pool=True),
+                       int8_conv3x3_requant_pool_plain(x, wq, m, b))
+    assert kint8.launch_counts() == before
+
+
+def test_int8_conv_refuses_bad_inputs():
+    """Inputs neither the kernel nor the plain version takes raise before
+    any work: wrong rank, weights not packed for Cin, per-channel vectors
+    of another length or dtype, an int8 map of another dtype."""
+    x = torch.zeros((1, 4, 4, 8), dtype=torch.int8)
+    wq = torch.zeros((16, kint8.padded_k(8)), dtype=torch.int8)
+    m = b = torch.zeros(16)
+    with pytest.raises(ValueError, match="xq must be"):
+        int8_conv3x3_requant(x[0], wq, m, b)
+    with pytest.raises(ValueError, match="wq has shape"):
+        int8_conv3x3_requant(x, wq[:, :64], m, b)
+    with pytest.raises(ValueError, match="m has shape"):
+        int8_conv3x3_requant(x, wq, m[:8], b, pool=True)
+    with pytest.raises(TypeError, match="b has dtype"):
+        int8_conv3x3_requant(x, wq, m, b.double())
+    with pytest.raises(TypeError, match="xq has dtype"):
+        int8_conv3x3_requant(x.float(), wq, m, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        int8_conv3x3_requant(x.transpose(1, 2), wq, m, b)
+
+
+def test_trunk_fuses_every_pool_into_its_conv(quant_pair, monkeypatch):
+    """``quantized_trunk_stages`` hands each conv that a pool follows to
+    the kernel with ``pool=True`` (VGG11: conv_0, 1, 3, 5, 7) and runs no
+    separate ``max_pool_int8``; its stage maps equal the unfused chain's
+    (each conv, then ``max_pool_int8``), bit for bit."""
+    _, quant, _, _ = quant_pair
+    q = quant_from_flax(quant, DEPTH)
+    x = torch.as_tensor(rand_crops(4, 6))
+    calls = []
+    conv = pq.int8_conv3x3_requant
+
+    def recorded(xq, wq, m, b, pool=False):
+        calls.append(pool)
+        return conv(xq, wq, m, b, pool=pool)
+
+    def no_pool(xq):
+        raise AssertionError("max_pool_int8 ran on a fused path")
+
+    monkeypatch.setattr(pq, "int8_conv3x3_requant", recorded)
+    monkeypatch.setattr(pq, "max_pool_int8", no_pool)
+    got = pq.quantized_trunk_stages(q, x)
+    monkeypatch.undo()
+    assert [i for i, p in enumerate(calls) if p] == [0, 1, 3, 5, 7]
+    xq, want = pq.quantize_input(q, x), []
+    for op in q.ops:
+        if op[0] == "conv":
+            xq = int8_conv3x3_requant_plain(xq, *q.layer(op[1]))
+        elif op[0] == "pool":
+            xq = pq.max_pool_int8(xq)
+        else:
+            want.append(xq)
+    assert len(got) == len(want) == 5
+    for (g, _), w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # -- the trunk on the JAX quant tree ------------------------------------
@@ -424,31 +550,48 @@ def test_window_step_refuses_weights_of_the_other_kind(quant_pair, tmp_path,
 
 
 def test_int8_kernel_labels_and_tensor_core_count():
-    """The build's ptxas and SASS readers name the int8 conv's two
-    instances and count its ``IMMA`` (integer tensor-core) instructions."""
+    """The build's ptxas and SASS readers name the int8 conv's instances
+    (main and stem, by their template arguments) and count its ``IGMMA``
+    (integer ``wgmma``) instructions beside ``IMMA`` (``mma.sync``)."""
     from mmmot_tpu_torch.kernels import build as kbuild
 
-    name = ("_ZN45_GLOBAL__N__e5b998cb_12_int8_conv_cu_ffac2ab819int8_conv3x3"
-            "_kernelIL{}EEEvPKaS2_PKfS4_Paiiiiii")
-    vec, byt = name.format("b1"), name.format("b0")
-    log = (f"ptxas info    : Compiling entry function '{vec}' for 'sm_90a'\n"
+    name = ("_ZN45_GLOBAL__N__e5b998cb_12_int8_conv_cu_ffac2ab821int8_conv_"
+            "{}_kernelI{}EEv14CUtensorMap_stS1_PKfS3_PaNS_4GeomE")
+    main128 = name.format("main", "Li128ELi128ELb0E")
+    main64 = name.format("main", "Li64ELi64ELb1E")
+    stem64 = name.format("stem", "Li64E")
+    log = (f"ptxas info    : Compiling entry function '{main128}' for "
+           "'sm_90a'\n"
            "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
            "loads\n"
-           "ptxas info    : Used 62 registers, used 1 barriers, 18432 bytes "
+           "ptxas info    : Used 104 registers, used 2 barriers\n"
+           f"ptxas info    : Compiling entry function '{stem64}' for "
+           "'sm_90a'\n"
+           "    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill "
+           "loads\n"
+           "ptxas info    : Used 62 registers, used 2 barriers, 16 bytes "
            "smem\n")
-    assert kbuild.ptxas_summary(log) == {"int8_conv3x3_kernel<vec>": dict(
-        stack=0, spill_stores=0, spill_loads=0, registers=62, smem=18432)}
-    sass = (f"\t\tFunction : {byt}\n"
-            "        /*0450*/                   IMMA.16832.S8.S8 R24, R4.ROW, "
-            "R20.COL, R24 ;\n"
-            f"\t\tFunction : {vec}\n"
-            "        /*0010*/                   IMMA.16832.S8.S8 R24, R4.ROW, "
-            "R20.COL, R24 ;\n"
-            "        /*0020*/                   IMMA.16832.S8.S8 R8, R4.ROW, "
-            "R22.COL, R8 ;\n")
-    assert kbuild.sass_counts(sass, ("IMMA", "HMMA")) == {
-        "int8_conv3x3_kernel<bytes>": {"IMMA": 1, "HMMA": 0},
-        "int8_conv3x3_kernel<vec>": {"IMMA": 2, "HMMA": 0}}
+    assert kbuild.ptxas_summary(log) == {
+        "int8_conv_main_kernel<128,128,false>": dict(
+            stack=0, spill_stores=0, spill_loads=0, registers=104, smem=0),
+        "int8_conv_stem_kernel<64>": dict(stack=8, spill_stores=4,
+                                          spill_loads=4, registers=62,
+                                          smem=16)}
+    sass = (f"\t\tFunction : {stem64}\n"
+            "        /*0450*/                   IGMMA.64x64x32.S8.S8 R24, "
+            "gdesc[UR4], R24, gsb0 ;\n"
+            f"\t\tFunction : {main64}\n"
+            "        /*0010*/                   IGMMA.64x64x32.S8.S8 R24, "
+            "gdesc[UR4], R24 ;\n"
+            "        /*0020*/                   IGMMA.64x64x32.S8.S8 R24, "
+            "gdesc[UR8], R24, gsb0 ;\n"
+            f"\t\tFunction : {main128}\n"
+            "        /*0030*/              @P0  IMMA.16832.S8.S8 R24, "
+            "R4.ROW, R20.COL, R24 ;\n")
+    assert kbuild.sass_counts(sass, ("IMMA", "IGMMA")) == {
+        "int8_conv_stem_kernel<64>": {"IMMA": 0, "IGMMA": 1},
+        "int8_conv_main_kernel<64,64,true>": {"IMMA": 0, "IGMMA": 2},
+        "int8_conv_main_kernel<128,128,false>": {"IMMA": 1, "IGMMA": 0}}
 
 
 def test_calibration_without_detections_raises(models, tmp_path):  # noqa: F811
