@@ -164,7 +164,34 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    latency p50/p90).  Its JSON line ``{"int8": ...}`` precedes the
    kernel line, whose last entry is the int8 conv (the 13 unpooled
    layers summed, each in ``layers``; the fused calls in
-   ``fused_pool_layers``; the runner chunk in ``runner_chunk``).
+   ``fused_pool_layers``; the runner chunk in ``runner_chunk``);
+12. solvers and single branches: (a) the fused kernel's K=1 instance
+   (one score branch, on ``fusion_C``'s seeded weights), its K=2
+   instances (``full_mmmot``'s with a dead camera: fused and lidar; with
+   a dead LiDAR: fused and image) and ``avg`` (K=3, the branch sum
+   divided by K) against their plain version at D=H=512, hh=256, N=32,
+   B=16 and B=128, in float32 and bfloat16, with holed masks and an
+   empty frame, timed as phase 3 times K=3; (b) the tiny float32 runner
+   (first 20 frames, window 8, S=2) CPU against GPU, files byte-equal,
+   for tiny ``fusion_C``, ``img_only``, ``lidar_only`` (Sinkhorn),
+   ``tiny_debug`` with the greedy solver, and ``tiny_debug`` with a dead
+   camera, then a dead LiDAR; ``lap``, ``ilp`` and ``native`` equal on 32
+   seeded instances; (c) at full width on the tree (S=2, window 64,
+   seeded random weights): ``fusion_C``, ``img_only``, ``lidar_only`` and
+   ``batched_val`` (Sinkhorn) through ``track_kitti_sequences``, a
+   ``batched_val`` net with ``score_fusion="avg"`` over sequence 0001
+   (no preset averages), and ``cli/track --config full_mmmot
+   --dead-sensor camera``, then ``lidar`` (the auction, K=2).  Each run:
+   no detection dropped, finite scores, ids that follow the rules across
+   windows, one affinity launch a window counted under its K
+   (``fused_affinity.k_launches``), and no auction call in a Sinkhorn
+   run.  Each Sinkhorn preset then tracks one window again with its
+   stages timed (load, extract, affinity, sinkhorn_lap, greedy rounding,
+   ids), and that window's association inputs go to the CPU: in float32
+   the GPU's and the CPU's ``solve_sinkhorn`` decisions must be equal; in
+   bfloat16 the rows that differ are counted.  Its JSON line
+   ``{"solvers": ...}`` precedes the kernel line, which ends with the
+   K=1, K=2 and avg instances.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -185,6 +212,7 @@ import numpy as np
 import torch
 
 from mmmot_tpu_torch.assoc.auction import auction_lap
+from mmmot_tpu_torch.assoc.greedy import greedy_matching
 from mmmot_tpu_torch.config import (full_mmmot, full_mmmot_b8,
                                     full_mmmot_lookalike,
                                     full_mmmot_noisy, tiny_debug)
@@ -283,14 +311,15 @@ def scale_of(y) -> float:
     return max(1.0, y.float().abs().max().item())
 
 
-def affinity_inputs(dtype, gen, dev, B, D=512):
-    """B frame pairs at the flagship shapes.  Counts are 3..16 per side;
+def affinity_inputs(dtype, gen, dev, B, D=512, K=3):
+    """B frame pairs at the flagship shapes, K branches.  Counts are 3..16
+    per side;
     every second pair has a random (holed) subset of the slots valid, the
     others a prefix.  Pair 0 has an empty prev frame, pair 1 27 valid
     detections on both sides, pair 2 alternating slots (even prev, odd
     curr), pair 3 a single prev detection at the last slot."""
-    a = torch.randn((B, 3, N, D), generator=gen, device=dev).to(dtype)
-    b = torch.randn((B, 3, N, D), generator=gen, device=dev).to(dtype)
+    a = torch.randn((B, K, N, D), generator=gen, device=dev).to(dtype)
+    b = torch.randn((B, K, N, D), generator=gen, device=dev).to(dtype)
     counts = torch.randint(3, 17, (2, B, 1), generator=gen, device=dev)
     counts[0, 0] = 0
     ar = torch.arange(N, device=dev)
@@ -371,15 +400,17 @@ def entry_band_inputs(dtype, gen, dev, B=None, D=512):
     return a, b, mp.contiguous(), mc.contiguous()
 
 
-def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None):
+def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None,
+                   avg=False):
     """Kernel vs plain on one input (with ``bias``, the kernel's bias
-    instance, which must move the link), then kernel, per-launch, plain
-    and library timings (device time, and time per call with the host's
-    work; ``cuda_ms``) and the bound."""
+    instance, which must move the link; with ``avg``, the branch sum
+    divided by K), then kernel, per-launch, plain and library timings
+    (device time, and time per call with the host's work; ``cuda_ms``)
+    and the bound."""
     B = a.shape[0]
     with f32_parity(dtype == torch.float32):
-        got = fused_affinity(a, b, mp, mc, params, bias)
-        want = affinity_plain(a, b, mp, mc, params, bias)
+        got = fused_affinity(a, b, mp, mc, params, bias, avg=avg)
+        want = affinity_plain(a, b, mp, mc, params, bias, avg=avg)
         torch.cuda.synchronize()
         errs = check_agreement(got, want, a, b, mp, mc, params, dtype,
                                label)
@@ -396,11 +427,12 @@ def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None):
         del want
         torch.cuda.empty_cache()
         plain_ms, plain_call_ms = cuda_ms(
-            lambda: affinity_plain(a, b, mp, mc, params, bias), 3)
+            lambda: affinity_plain(a, b, mp, mc, params, bias, avg=avg), 3)
         torch.cuda.empty_cache()
-        products, finish, _ = affinity_launches(a, b, mp, mc, params, bias)
+        products, finish, _ = affinity_launches(a, b, mp, mc, params, bias,
+                                                avg=avg)
         ms, call_ms = cuda_ms(
-            lambda: fused_affinity(a, b, mp, mc, params, bias), 20)
+            lambda: fused_affinity(a, b, mp, mc, params, bias, avg=avg), 20)
         launch_ms = {"products": cuda_ms(products, 20)[0],
                      "finish": cuda_ms(finish, 20)[0]}
         # Library yardstick for the dominant product only: one batched
@@ -418,7 +450,7 @@ def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None):
     # Launch 1's blocks with work, computed from the masks (the kernel
     # does not count them): one per 64 valid pairs and branch, and a
     # head block per side with detections.
-    tiles = int(3 * ((per_pair + 63) // 64).sum()
+    tiles = int(a.shape[1] * ((per_pair + 63) // 64).sum()
                 + mp.any(1).sum() + mc.any(1).sum())
     n = mp.shape[1]
     stage(f"kernel {str(dtype)[6:]} {label} ({pairs} valid pairs of "
@@ -519,18 +551,21 @@ def crop_window(boxes, det_mask, width: int) -> int:
     return int(min(max(256, -(-wmax // 128) * 128), width))
 
 
-def check_ids(ids, det_mask) -> None:
+def check_ids(ids, det_mask, unassigned_ok: bool = False) -> int:
     """ids: -1 exactly at empty slots; within a frame unique; each id is
     inherited from the previous frame or the next fresh one in slot
-    order."""
+    order.  With ``unassigned_ok`` a valid slot may be -1 too: the greedy
+    rounding of a Sinkhorn plan can leave a detection neither linked nor
+    new (as the reference's does).  Returns the number of such slots."""
     ids, dm = ids.cpu().numpy(), det_mask.cpu().numpy()
     if ids.shape != dm.shape:
         raise AssertionError(f"ids shape {ids.shape} != {dm.shape}")
-    if not ((ids >= 0) == dm).all() or not (ids[~dm] == -1).all():
+    unassigned = int((dm & (ids < 0)).sum())
+    if (ids[~dm] != -1).any() or (unassigned and not unassigned_ok):
         raise AssertionError("ids are not -1 exactly on the empty slots")
     next_id, prev = 0, set()
     for t in range(len(ids)):
-        row = ids[t][dm[t]]
+        row = ids[t][dm[t] & (ids[t] >= 0)]
         if len(set(row.tolist())) != len(row):
             raise AssertionError(f"frame {t}: repeated id")
         for i in row.tolist():
@@ -541,6 +576,7 @@ def check_ids(ids, det_mask) -> None:
                                      f"inherited id or {next_id}")
             next_id += 1
         prev = set(row.tolist())
+    return unassigned
 
 
 def reference_check(dev):
@@ -604,8 +640,8 @@ def stage_timers(mod, stages=None):
 
     timed_kernel = timer("kernel", fused_affinity)
 
-    def kernel(*args):
-        seen["args"], seen["out"] = args, timed_kernel(*args)
+    def kernel(*args, **kw):
+        seen["args"], seen["out"] = args, timed_kernel(*args, **kw)
         seen["kernel_calls"].append((args, seen["out"]))
         return seen["out"]
 
@@ -844,11 +880,15 @@ def agreement_net(device):
     return net
 
 
-def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner"):
+def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner",
+                     assoc=None, dead_sensor=None, tie_check=None):
     """tiny_debug float32 on the tree's first frames, window 8, two
     sequences per call, on the CPU (plain versions) and on the GPU
     (kernels): the result and summary files must be byte-equal.  ``nets``
-    {device: net} (default ``agreement_net`` on each) share weights."""
+    {device: net} (default ``agreement_net`` on each) share weights;
+    ``assoc`` (an ``AssocConfig``) and ``dead_sensor`` go to the
+    runner.  Where files differ, ``tie_check()`` (if given) must explain
+    it (it raises otherwise) and its report is returned."""
     import dataclasses
     import os
 
@@ -859,8 +899,9 @@ def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner"):
         before = fused_affinity.launches
         out = os.path.join(tmp, f"{tag}_agree_{torch.device(device).type}")
         stats = track_kitti_sequences(
-            TrackingModule(net), data, out, window=AGREE_WINDOW,
-            batch_sequences=RUNNER_S, max_frames=AGREE_FRAMES)
+            TrackingModule(net, assoc), data, out, window=AGREE_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=AGREE_FRAMES,
+            dead_sensor=dead_sensor)
         launched = fused_affinity.launches - before
         if (device == "cpu") == (launched > 0):
             raise AssertionError(f"agreement run on {device}: {launched} "
@@ -872,14 +913,18 @@ def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner"):
     if sorted(cpu) != sorted(gpu) or len(cpu) < 4:
         raise AssertionError(f"result files differ: {sorted(cpu)} vs "
                              f"{sorted(gpu)}")
-    for name in cpu:
-        if cpu[name] != gpu[name]:
-            raise AssertionError(f"{name}: GPU result differs from the CPU's")
+    differ = sorted(n for n in cpu if cpu[n] != gpu[n])
+    if differ and tie_check is None:
+        raise AssertionError(f"{differ[0]}: GPU result differs from the "
+                             "CPU's")
+    tie = tie_check() if differ else None
     stage(f"{tag} agreement: tiny_debug f32, {AGREE_FRAMES} frames x "
-          f"{RUNNER_S} sequences, window {AGREE_WINDOW}: {len(cpu)} files "
-          "byte-equal on CPU and GPU")
+          f"{RUNNER_S} sequences, window {AGREE_WINDOW}: {len(cpu)} files, "
+          + (f"{differ} differ by a near tie of the greedy rounding {tie}"
+             if differ else "byte-equal on CPU and GPU"))
     return {"frames": AGREE_FRAMES, "window": AGREE_WINDOW,
-            "files": sorted(cpu), "byte_equal": True}
+            "files": sorted(cpu), "byte_equal": not differ,
+            "differ": differ, "near_tie": tie}
 
 
 def runner_split(mod, data, dev, out_dir: str):
@@ -2868,6 +2913,465 @@ def int8_phase(dev, smi: str, root: str, tmp: str, runner):
             "gpu": smi}
 
 
+# Phase 12: the other solvers and the single-branch scorers.  (a) the
+# fused kernel's K=1 (one score branch), K=2 (a dead sensor's branch
+# absent) and avg instances against their plain version; (b) tiny
+# float32 runners, CPU against GPU, on the single-branch nets, the greedy
+# solver and a dead sensor, then the host oracles; (c) full width on the
+# tree: the Sinkhorn presets through the runner, a score_fusion="avg"
+# net over sequence 0001, and cli/track --dead-sensor on full_mmmot.
+SINKHORN_PRESETS = ("fusion_C", "img_only", "lidar_only", "batched_val")
+SOLVER_B = (T, 128)     # the main path's window and a runner window
+# (label, preset that gives the weights, branches, avg)
+INSTANCES = (("K=1", "fusion_C", ("fused",), False),
+             ("K=2 dead camera", "full_mmmot", ("fused", "lidar"), False),
+             ("K=2 dead lidar", "full_mmmot", ("fused", "image"), False),
+             ("K=3 avg", "full_mmmot", ("fused", "image", "lidar"), True))
+
+
+def preset_net(name: str, dev, seed: int = 0, **model):
+    """A full-width net of preset ``name`` with seeded random weights
+    (as phase 6's), ``model`` replacing fields of its model config."""
+    import dataclasses
+
+    import mmmot_tpu_torch.config as presets
+
+    mcfg = dataclasses.replace(getattr(presets, name)().model, **model)
+    return init_random_(TrackingNet(mcfg, device=dev), seed)
+
+
+def check_instances(dev):
+    """(a): each instance of ``INSTANCES`` against its plain version at
+    D=H=512, hh=256, N=32, B=16 and B=128, float32 and bfloat16, with
+    holed masks and an empty frame, timed as phase 3 times K=3."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    report = {}
+    for label, preset, branches, avg in INSTANCES:
+        net = preset_net(preset, dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            params = build_affinity_params(net, dtype, branches)
+            for B in SOLVER_B:
+                report[label, dtype, B] = measure_kernel(
+                    *affinity_inputs(dtype, gen, dev, B, K=len(branches)),
+                    params, dtype, f"{label} B={B}", avg=avg)
+        del net
+        torch.cuda.empty_cache()
+    return report
+
+
+def single_branch_nets(model, device, seed=7):
+    """tiny_debug widths with ``model`` switches, seeded as
+    ``agreement_net``."""
+    import dataclasses
+
+    net = init_random_(TrackingNet(dataclasses.replace(
+        tiny_debug().model, **model), device=device), seed)
+    with torch.no_grad():
+        for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+            head.dense_1.bias.fill_(-3.0)
+    return net
+
+
+TIE_GAP = 1e-3     # a near tie: the two picks' scores differ by at most
+                   # this (log-plan or gain units) in each device's scores
+
+
+def lockstep_gap(score_cpu, score_gpu):
+    """Greedy rounding of the CPU's and the GPU's scores [M, M] of one
+    instance in lock step, up to the first round whose picks differ:
+    (round, the CPU's score of its pick minus that of the GPU's pick,
+    the same in the GPU's scores), or None when every pick agrees."""
+    a = score_cpu.double().numpy()
+    b = score_gpu.double().cpu().numpy()
+    M = a.shape[-1]
+    used_r, used_c = np.zeros(M, bool), np.zeros(M, bool)
+    for r in range(M):
+        used = used_r[:, None] | used_c[None, :]
+        ma, mb = np.where(used, -np.inf, a), np.where(used, -np.inf, b)
+        ia, ib = int(np.argmax(ma)), int(np.argmax(mb))
+        if ia != ib:
+            return r, float(ma.flat[ia] - ma.flat[ib]), float(
+                mb.flat[ib] - mb.flat[ia])
+        used_r[ia // M] = used_c[ia % M] = True
+    return None
+
+
+def greedy_tie_report(calls_cpu, calls_gpu, what: str):
+    """The first solver call whose decisions differ between the CPU's and
+    the GPU's run (``calls_*``: (the scores the call handed to
+    ``greedy_matching``, its decisions), in call order; later calls see
+    states that differ).  For each of its instances that differ: the
+    greedy rounding's first round whose picks differ and the two picks'
+    gap in each device's scores, or with equal picks the smallest gain
+    picked (the greedy solver keeps a pick while its gain is positive).
+    Raises unless every gap is at most ``TIE_GAP`` (near ties), or when
+    no decision differs; returns the call, the instances that differ,
+    the largest gap and the first instance's report."""
+    for k, ((x, dx), (y, dy)) in enumerate(zip(calls_cpu, calls_gpu)):
+        x, y = x.reshape((-1,) + x.shape[-2:]), y.reshape((-1,) +
+                                                           y.shape[-2:])
+        n = x.shape[0]
+        differ = torch.zeros(n, dtype=torch.bool)
+        for a, b in zip(dx, dy):
+            differ |= (a.cpu().reshape(n, -1) != b.cpu().reshape(n, -1)
+                       ).any(-1)
+        reports = []
+        for i in torch.nonzero(differ)[:, 0].tolist():
+            found = lockstep_gap(x[i], y[i])
+            if found is None:
+                rc = greedy_matching(x[i])
+                gain = x[i].gather(-1, rc.long()[:, None])
+                reports.append({"instance": i, "round": None,
+                                "gap": float(gain.abs().min())})
+            else:
+                rnd, gap_cpu, gap_gpu = found
+                reports.append({"instance": i, "round": rnd,
+                                "gap": max(gap_cpu, gap_gpu),
+                                "gap_cpu": gap_cpu, "gap_gpu": gap_gpu})
+        if not reports:
+            continue
+        worst = max(r["gap"] for r in reports)
+        if worst > TIE_GAP:
+            raise AssertionError(f"{what}: call {k}: the decisions differ "
+                                 f"by more than a near tie: {reports}")
+        return {"call": k, "instances": len(reports), "max_gap": worst,
+                "first": reports[0]}
+    raise AssertionError(f"{what}: files differ, but every decision of the "
+                         f"{len(calls_cpu)} solver calls agrees")
+
+
+@contextlib.contextmanager
+def greedy_inputs():
+    """While open, each call of the Sinkhorn or the greedy solver records,
+    by device type, the scores its rounding (``greedy_matching``) got and
+    the decisions it returned."""
+    import mmmot_tpu_torch.assoc.greedy as greedy_mod
+    import mmmot_tpu_torch.assoc.sinkhorn as sk_mod
+    import mmmot_tpu_torch.assoc.solve as solve_mod
+
+    calls = {"cpu": [], "cuda": []}
+    scores = []
+    rounding = greedy_mod.greedy_matching
+
+    def recorded(score):
+        scores.append(score.detach().float().cpu())
+        return rounding(score)
+
+    def solver(fn):
+        def run(link, *args, **kw):
+            dec = fn(link, *args, **kw)
+            calls[link.device.type].append((scores.pop(), dec))
+            return dec
+        return run
+
+    with patched(greedy_mod, "greedy_matching", recorded), \
+            patched(sk_mod, "greedy_matching", recorded), \
+            patched(solve_mod, "solve_sinkhorn",
+                    solver(solve_mod.solve_sinkhorn)), \
+            patched(solve_mod, "solve_greedy",
+                    solver(solve_mod.solve_greedy)):
+        yield calls
+
+
+def oracle_agreement():
+    """lap, ilp and native: equal decisions on 32 seeded instances (N=16,
+    half with det scores), on the host."""
+    from mmmot_tpu_torch.assoc.solve import associate
+    from mmmot_tpu_torch.config import AssocConfig
+
+    rng = np.random.default_rng(12)
+    for i in range(32):
+        n = 16
+        args = [torch.tensor(rng.normal(0, 1, (n, n)), dtype=torch.float32),
+                torch.tensor(rng.uniform(0, 1, n), dtype=torch.float32),
+                torch.tensor(rng.uniform(0, 1, n), dtype=torch.float32),
+                torch.tensor(rng.random(n) < 0.7),
+                torch.tensor(rng.random(n) < 0.7)]
+        det = {}
+        if i % 2:
+            det = {k: torch.tensor(rng.normal(0, 1.5, n), dtype=torch.float32)
+                   for k in ("det_prev", "det_curr")}
+        decs = [associate(*args, AssocConfig(solver=s), **det)
+                for s in ("lap", "ilp", "native")]
+        for d in decs[1:]:
+            for f, x, y in zip(d._fields, d, decs[0]):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"oracles differ on instance {i}: "
+                                         f"{f}")
+    return 32
+
+
+def solver_agreement(root: str, dev, tmp: str):
+    """(b): the tiny float32 runner CPU against GPU, result files
+    byte-equal, for tiny fusion_C, img_only and lidar_only (Sinkhorn),
+    tiny_debug with the greedy solver, and tiny_debug with a dead camera,
+    then a dead LiDAR; then the three host oracles."""
+    from mmmot_tpu_torch.config import AssocConfig
+
+    runs = {"fusion_C": (dict(score_fusion="fused-only"), "sinkhorn", None),
+            "img_only": (dict(use_lidar=False), "sinkhorn", None),
+            "lidar_only": (dict(use_image=False), "sinkhorn", None),
+            "greedy": ({}, "greedy", None),
+            "dead_camera": ({}, "auction", "camera"),
+            "dead_lidar": ({}, "auction", "lidar")}
+    out = {}
+    for tag, (model, solver, dead) in runs.items():
+        nets = {d: single_branch_nets(model, d) for d in ("cpu", dev)}
+        with greedy_inputs() as calls:
+            out[tag] = runner_agreement(
+                root, dev, tmp, nets, f"solvers {tag}",
+                AssocConfig(solver=solver), dead,
+                tie_check=lambda: greedy_tie_report(
+                    calls["cpu"], calls["cuda"], tag))
+    out["oracle_instances"] = oracle_agreement()
+    stage(f"solvers agreement: {len(runs)} tiny runners byte-equal on CPU "
+          f"and GPU; lap, ilp and native equal on "
+          f"{out['oracle_instances']} instances")
+    return out
+
+
+def sinkhorn_inputs_check(args, cfg):
+    """One window's association inputs (link_norm, new, end, masks; the
+    Sinkhorn runs on the GPU) taken to the CPU: upcast to float32, the
+    GPU and CPU ``solve_sinkhorn`` decisions must be equal, but for a
+    near tie of the greedy rounding (``greedy_tie_report``, printed); in
+    bfloat16, the slots whose decisions differ are counted."""
+    import mmmot_tpu_torch.assoc.solve as solve_mod
+
+    link, new, end, mp, mc = args
+    kw = dict(tau=cfg.sinkhorn_tau, iters=cfg.sinkhorn_iters)
+    out = {"instances": int(link.shape[0]), "dtype": str(link.dtype)[6:]}
+    for what, cast in (("float32", lambda x: x.float()),
+                       ("bfloat16", lambda x: x)):
+        with greedy_inputs() as calls:
+            dec = {d: solve_mod.solve_sinkhorn(
+                *(cast(x).to(d) for x in (link, new, end)), mp.to(d),
+                mc.to(d), **kw) for d in ("cpu", link.device)}
+        diff = [int((x.cpu() != y).sum())
+                for x, y in zip(dec[link.device], dec["cpu"])]
+        out[what] = dict(zip(dec["cpu"]._fields, diff))
+        if what == "float32" and any(diff):
+            out["float32_near_tie"] = greedy_tie_report(
+                calls["cpu"], calls["cuda"], "sinkhorn float32")
+    return out
+
+
+def counted_calls(obj, name: str, counter: dict):
+    """``patched`` with a wrapper that counts the calls of ``obj.name``
+    into ``counter[name]``."""
+    fn = getattr(obj, name)
+
+    def run(*a, **kw):
+        counter[name] = counter.get(name, 0) + 1
+        return fn(*a, **kw)
+    return patched(obj, name, run)
+
+
+def check_runner_run(stats, what: str, K: int, launches: dict,
+                     unassigned_ok: bool = False) -> int:
+    """No detection dropped, finite scores, ids that follow the rules
+    across windows (``check_ids``; ``unassigned_ok`` for a greedy
+    rounding), and one affinity launch a window, counted under K.
+    Returns the valid detections left without an id."""
+    if stats["n_dropped"] != 0:
+        raise AssertionError(f"{what}: n_dropped {stats['n_dropped']}")
+    unassigned = 0
+    for seq, o in stats["outputs"].items():
+        if not np.isfinite(o["det_score"]).all():
+            raise AssertionError(f"{what} {seq}: non-finite det scores")
+        unassigned += check_ids(torch.as_tensor(o["ids"]),
+                                torch.as_tensor(o["det_mask"]),
+                                unassigned_ok)
+    want = {k: stats["n_windows"] if k == K else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: launches by K {launches} for "
+                             f"{stats['n_windows']} windows at K={K}")
+    return unassigned
+
+
+def sinkhorn_runner(name: str, root: str, tmp: str, dev, split=True,
+                    sequences=None, **model):
+    """Preset ``name`` at full width through ``track_kitti_sequences``
+    (S=2, window 64; ``model`` replaces fields of its model config) with
+    every count set to 0 just before and read just after:
+    ``check_runner_run`` and no auction call.  With ``split``, one
+    window (the first 64 frames of each sequence) again under
+    ``stage_timers`` (load, extract, affinity, sinkhorn_lap, greedy
+    rounding, ids, window) and its association inputs held CPU against
+    GPU (``sinkhorn_inputs_check``)."""
+    import dataclasses
+
+    import mmmot_tpu_torch.assoc.sinkhorn as sk_mod
+    import mmmot_tpu_torch.assoc.solve as solve_mod
+    import mmmot_tpu_torch.config as presets
+    import mmmot_tpu_torch.tracker.sequence as seq_mod
+    from mmmot_tpu_torch.kernels.affinity import reset_launches
+
+    cfg = getattr(presets, name)()
+    net = preset_net(name, dev, **model)
+    K = len(net.score_branches)
+    mod = TrackingModule(net, cfg.assoc)
+    data = dataclasses.replace(cfg.data, root=root)
+    calls = {}
+    reset_launches()
+    auction_lap.rounds = 0
+    with counted_calls(solve_mod, "solve_auction", calls), \
+            counted_calls(sk_mod, "sinkhorn_lap", calls):
+        stats = track_kitti_sequences(
+            mod, data, f"{tmp}/{name}", window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, sequences=sequences, evaluate=False)
+    launches = dict(fused_affinity.k_launches)
+    avg_launches = fused_affinity.avg_launches
+    if calls.get("solve_auction") or auction_lap.rounds:
+        raise AssertionError(f"{name}: {calls} auction calls "
+                             f"({auction_lap.rounds} rounds)")
+    if calls.get("sinkhorn_lap") != stats["n_windows"]:
+        raise AssertionError(f"{name}: {calls} for {stats['n_windows']} "
+                             "windows")
+    unassigned = check_runner_run(stats, name, K, launches, True)
+    counted = stats["window_s"][1:]
+    result = {"frames": stats["frames_loaded"], "windows": stats["n_windows"],
+              "K": K, "score_fusion": net.cfg.score_fusion,
+              "fps": stats["fps"], "frames_counted": stats["total_frames"],
+              "window_ms": [1e3 * x for x in stats["window_s"]],
+              "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
+              "load_s": stats["load_s"], "launches_by_k": launches,
+              "avg_launches": avg_launches, "calls": calls,
+              "auction_rounds": auction_lap.rounds,
+              "detections": sum(int(o["det_mask"].sum())
+                                for o in stats["outputs"].values()),
+              "unassigned_by_rounding": unassigned}
+    if split:
+        seen = {}
+        assoc = seq_mod.associate
+
+        def captured(*args, **kw):
+            seen["args"] = args[:5]
+            return assoc(*args, **kw)
+
+        stages = {"extract": (seq_mod, "extract_frames_batched"),
+                  "affinity": (mod, "affinity"),
+                  "sinkhorn_lap": (sk_mod, "sinkhorn_lap"),
+                  "greedy": (sk_mod, "greedy_matching"),
+                  "ids": (seq_mod, "propagate_ids")}
+        with patched(seq_mod, "associate", captured), \
+                stage_timers(mod, stages) as (times, _):
+            one = track_kitti_sequences(
+                mod, data, f"{tmp}/{name}_split", window=RUNNER_WINDOW,
+                batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
+                evaluate=False)
+        times["load"] = one["load_s"] * 1e3
+        times["window"] = one["window_s"][0] * 1e3
+        result["split_ms"] = times
+        result["gpu_vs_cpu_sinkhorn"] = sinkhorn_inputs_check(
+            seen["args"], cfg.assoc)
+    stage(f"solvers runner {name}{model or ''}: {result['frames']} frames, "
+          f"{result['windows']} windows, K={K}, {stats['fps']:.1f} FPS "
+          f"after the first window, windows {result['window_ms']} ms, "
+          f"launches by K {launches} (avg {avg_launches}), calls {calls}, "
+          f"{unassigned} of {result['detections']} detections left "
+          "without an id by the greedy rounding"
+          + (f", split {result['split_ms']} ms, GPU vs CPU sinkhorn "
+             f"{result['gpu_vs_cpu_sinkhorn']}" if split else ""))
+    del net, mod
+    torch.cuda.empty_cache()
+    return result
+
+
+def dead_sensor_cli(root: str, tmp: str, weights: str, dead: str):
+    """``cli/track --config full_mmmot --dead-sensor <dead>`` itself over
+    the tree (S=2, window 64, the auction, K=2) with every count set to 0
+    just before and read just after (``check_runner_run``)."""
+    from mmmot_tpu_torch.cli.track import main as track_main
+    from mmmot_tpu_torch.kernels.affinity import reset_launches
+
+    reset_launches()
+    auction_lap.rounds = 0
+    stats = track_main(["--config", "full_mmmot", "--data-root", root,
+                        "--weights", weights, "--dead-sensor", dead,
+                        "--result-path", f"{tmp}/dead_{dead}",
+                        "--batch-sequences", str(RUNNER_S), "--window",
+                        str(RUNNER_WINDOW), "--no-eval"])
+    launches = dict(fused_affinity.k_launches)
+    check_runner_run(stats, f"dead {dead}", 2, launches)
+    counted = stats["window_s"][1:]
+    result = {"frames": stats["frames_loaded"], "windows": stats["n_windows"],
+              "fps": stats["fps"],
+              "window_ms": [1e3 * x for x in stats["window_s"]],
+              "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
+              "launches_by_k": launches,
+              "auction_rounds": auction_lap.rounds}
+    stage(f"solvers cli/track --dead-sensor {dead}: {result['frames']} "
+          f"frames, {result['windows']} windows, {stats['fps']:.1f} FPS "
+          f"after the first window, windows {result['window_ms']} ms, "
+          f"launches by K {launches}, {auction_lap.rounds} auction rounds")
+    return result
+
+
+def solvers_phase(dev, smi: str, root: str, tmp: str):
+    """Phase 12: (a), (b) and (c) above; returns the kernel report of (a)
+    and the ``{"solvers": ...}`` result."""
+    from mmmot_tpu_torch.compat.from_jax import save_npz, to_flax_variables
+
+    kern = check_instances(dev)
+    agreement = solver_agreement(root, dev, tmp)
+    runs = {name: sinkhorn_runner(name, root, tmp, dev)
+            for name in SINKHORN_PRESETS}
+    # No preset averages: the avg instance runs on a batched_val net with
+    # score_fusion="avg", over sequence 0001 only.
+    runs["avg"] = sinkhorn_runner("batched_val", root, tmp, dev, split=False,
+                                  sequences=["0001"], score_fusion="avg")
+    if runs["avg"]["avg_launches"] != runs["avg"]["windows"]:
+        raise AssertionError(f"avg run: {runs['avg']['avg_launches']} avg "
+                             "launches")
+    weights = f"{tmp}/solvers_full_mmmot.npz"
+    net = preset_net("full_mmmot", "cpu")
+    save_npz(weights, to_flax_variables(net))
+    del net
+    for dead in ("camera", "lidar"):
+        runs[f"dead_{dead}"] = dead_sensor_cli(root, tmp, weights, dead)
+    return kern, {"agreement": agreement, "runs": runs, "gpu": smi}
+
+
+def instance_entries(kern, solvers):
+    """The kernel line's entries of the K=1, K=2 and avg instances (B=16
+    bfloat16, with B=128 and float32 beside), each with its launches on
+    the driven paths of phase 12 (c)."""
+    runs = solvers["runs"]
+    launches = {
+        "K=1": {n: runs[n]["launches_by_k"][1]
+                for n in ("fusion_C", "img_only", "lidar_only")},
+        "K=2 dead camera": {"dead_camera": runs["dead_camera"][
+            "launches_by_k"][2]},
+        "K=2 dead lidar": {"dead_lidar": runs["dead_lidar"][
+            "launches_by_k"][2]},
+        "K=3 avg": {"avg": runs["avg"]["avg_launches"]}}
+    keys = ("ms", "call_ms", "launch_ms", "plain_ms", "plain_call_ms",
+            "library_ms", "library_call_ms", "bound_ms", "bound_by",
+            "valid_pairs", "errs", "frame_pairs", "slots")
+    out = []
+    for label, _, branches, avg in INSTANCES:
+        r = kern[label, torch.bfloat16, T]
+        out.append({
+            "name": f"fused_affinity[{label}]", "route": "cuda",
+            "source": "mmmot_tpu_torch/csrc/affinity.cu",
+            "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
+            "instance": f"branches {list(branches)}, avg={avg} "
+                        "(affinity_kernel.py:121-148)",
+            "launches": sum(launches[label].values()),
+            "launches_by_path": launches[label],
+            "max_abs_err": max(r["errs"][k] for k in ("link", "link_norm",
+                                                      "new", "end")),
+            **{k: r[k] for k in keys},
+            "library_call": "torch.bmm [K, B*N*N, D] x [K, D, H] (the W1 "
+                            "product alone, over all pairs)",
+            "dtype": "bfloat16",
+            "b128": {k: kern[label, torch.bfloat16, 128][k] for k in keys},
+            "float32": {f"b{B}": {k: kern[label, torch.float32, B][k]
+                                  for k in keys} for B in SOLVER_B}})
+    return out
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -2929,6 +3433,8 @@ def main(argv=None) -> int:
         serving = serving_phase(dev, smi, root, tmp)
         torch.cuda.empty_cache()
         int8 = int8_phase(dev, smi, root, tmp, runner)
+        torch.cuda.empty_cache()
+        kern_inst, solvers = solvers_phase(dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -3096,8 +3602,10 @@ def main(argv=None) -> int:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"int8": {k: v for k, v in int8.items()
                                if k not in ("kernel", "runner_chunk")}}))
+    print(json.dumps({"solvers": solvers}))
     print(json.dumps({"kernels": [entry, entry_bias] + serving_entries
-                      + [entry_int8]}))
+                      + [entry_int8] + instance_entries(kern_inst,
+                                                        solvers)}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,6 +1,8 @@
 """Batched integer eps-scaling auction: port of
 ``mmmot_tpu/assoc/auction.py`` (``auction_lap``, ``_auction_all_phases``,
-``_complete_matching``, ``solve_auction``).
+``_complete_matching``, ``solve_auction``), with the partial-matching
+form the greedy solver takes (``build_gain_matrix``,
+``decode_matching``).
 
 The reference vmaps a ``while_loop``, which applies the body only to the
 instances whose condition still holds.  Here all instances run as one
@@ -26,6 +28,51 @@ BIG_NEG = -(2 ** 30)        # forbidden / sentinel for int32 scores
 SYNC_EVERY = 64             # bidding rounds between host checks
 SCALING_STEPS = 8           # eps phases (AssocConfig's default)
 QUANT_BITS = 18             # score grid: 2**18 steps over each cost's span
+
+
+def build_gain_matrix(link, new, end, mask_prev, mask_curr, det_prev=None,
+                      det_curr=None):
+    """gain[i, j] = link[i, j] - outside_p[i] - outside_c[j], ``NEG`` at
+    forbidden pairs: the tracking objective is the sum of the matched
+    gains plus a constant, so any max-weight partial matching on it
+    (outside option 0) is exact.  The outside options are end[i] and
+    new[j]; with det scores linking also earns them and the outside
+    option is ``max(det + end/new, 0)`` (end or reject)."""
+    pair_ok = mask_prev.bool()[..., :, None] & mask_curr.bool()[..., None, :]
+    if det_prev is not None:
+        out_p = torch.clamp_min(end + det_prev, 0.0) - det_prev
+        out_c = torch.clamp_min(new + det_curr, 0.0) - det_curr
+    else:
+        out_p, out_c = end, new
+    gain = link - out_p[..., :, None] - out_c[..., None, :]
+    return torch.where(pair_ok, gain, torch.tensor(NEG, dtype=gain.dtype,
+                                                   device=gain.device))
+
+
+def decode_matching(row_to_col, mask_prev, mask_curr, new=None, end=None,
+                    det_prev=None, det_curr=None) -> Decisions:
+    """A *partial* matching [.., N] (curr column or -1) -> Decisions."""
+    N = mask_prev.shape[-1]
+    mp, mc = mask_prev.bool(), mask_curr.bool()
+    linked = (row_to_col >= 0) & mp
+    match_prev = torch.where(linked, row_to_col, -1).to(torch.int32)
+    is_end = mp & ~linked
+    lead = match_prev.shape[:-1]
+    cols = torch.arange(N, device=mp.device)
+    idx = torch.where(linked, match_prev, N).long().reshape(-1, N)
+    src = torch.where(linked, cols.to(torch.int32), -1).reshape(-1, N)
+    inv = torch.full((idx.shape[0], N + 1), -1, dtype=torch.int32,
+                     device=mp.device)
+    inv.scatter_(1, idx, src)
+    match_curr = torch.where(mc, inv[:, :N].reshape(*lead, N), -1)
+    is_new = mc & (match_curr < 0)
+    if det_prev is not None:
+        is_end = is_end & ((det_prev + end) >= 0.0)
+        is_new = is_new & ((det_curr + new) >= 0.0)
+    keep_prev = linked | is_end
+    keep_curr = ((match_curr >= 0) | is_new) & mc
+    return Decisions(match_prev, match_curr.to(torch.int32), is_end, is_new,
+                     keep_prev, keep_curr)
 
 
 def _quantize(cost):

@@ -9,6 +9,10 @@
         --data-root data/kitti_tracking --batch-sequences 2
     python -m mmmot_tpu_torch.cli.track --config full_mmmot_int8 \\
         --data-root data/kitti_tracking --batch-sequences 2
+    python -m mmmot_tpu_torch.cli.track --config batched_val \\
+        --data-root data/kitti_tracking --batch-sequences 2
+    python -m mmmot_tpu_torch.cli.track --config full_mmmot \\
+        --data-root data/kitti_tracking --dead-sensor camera
 
 Tracks the sequences of a KITTI tracking tree in windows
 (``tracker/kitti_runner.py``), writes one KITTI result txt per sequence
@@ -19,7 +23,12 @@ scores them with the devkit and HOTA (``summary_<cls>.txt``,
 (``full_mmmot_noisy``: the noisy-detector quality stack, reading
 ``detections/noisy/``; ``full_mmmot_lookalike``: that stack with GNN
 refine and the learned motion term, at 112² crops; ``full_mmmot_int8``:
-the flagship with its appearance trunk in int8).  ``--int8``, or a
+the flagship with its appearance trunk in int8; ``batched_val``: the
+flagship with the Sinkhorn association; ``fusion_C``: that scoring the
+fused branch alone; ``img_only`` / ``lidar_only``: one modality).
+``--solver`` overrides the preset's association solver;
+``--dead-sensor camera|lidar`` simulates a failed sensor (its input work
+is skipped and the affinity scores the branches left).  ``--int8``, or a
 preset's ``model.int8_appearance``, quantises the trunk after the weights
 load, calibrated on real crops of the tree (``models/quantize.py``).
 Weights come from ``--load-path`` (a checkpoint directory of the port's
@@ -37,7 +46,8 @@ import logging
 import os
 
 PRESETS = ("full_mmmot", "full_mmmot_ydet", "full_mmmot_noisy",
-           "full_mmmot_lookalike", "full_mmmot_int8", "tiny_debug")
+           "full_mmmot_lookalike", "full_mmmot_int8", "batched_val",
+           "fusion_C", "img_only", "lidar_only", "tiny_debug")
 
 
 def parse_args(argv=None):
@@ -68,10 +78,17 @@ def parse_args(argv=None):
     p.add_argument("--score-threshold", type=float, default=0.0,
                    help="drop output detections whose learned confidence "
                         "(det head) is below this")
+    p.add_argument("--solver", default=None,
+                   help="override the association solver "
+                        "(auction|sinkhorn|greedy|ilp|lap|native)")
     p.add_argument("--window", type=int, default=64,
                    help="frames per streaming window")
     p.add_argument("--batch-sequences", type=int, default=1,
                    help="sequences tracked together per window call")
+    p.add_argument("--dead-sensor", choices=["camera", "lidar"],
+                   default=None,
+                   help="simulate a failed sensor on the real pipeline "
+                        "(the net runs on the modality left)")
     p.add_argument("--submission-zip", default=None, metavar="ZIP",
                    help="package the result txts as a KITTI tracking "
                         "submission zip")
@@ -111,6 +128,9 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     log = logging.getLogger("mmmot_torch.track")
     cfg = getattr(presets, args.config)()
+    if args.solver:
+        cfg = dataclasses.replace(cfg, assoc=dataclasses.replace(
+            cfg.assoc, solver=args.solver))
     if args.data_root:
         cfg = dataclasses.replace(cfg, data=dataclasses.replace(
             cfg.data, root=args.data_root))
@@ -138,7 +158,8 @@ def main(argv=None):
         sequences=args.sequences.split(",") if args.sequences else None,
         window=args.window, score_threshold=args.score_threshold,
         evaluate=not args.no_eval, max_frames=args.frames,
-        batch_sequences=args.batch_sequences, log=log)
+        batch_sequences=args.batch_sequences, dead_sensor=args.dead_sensor,
+        log=log)
     if stats["total_frames"]:
         log.info("throughput: %.1f FPS (after the first window)",
                  stats["fps"])

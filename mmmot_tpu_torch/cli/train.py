@@ -29,7 +29,8 @@ import os
 import time
 
 PRESETS = ("full_mmmot", "full_mmmot_b8", "full_mmmot_ydet",
-           "full_mmmot_noisy", "full_mmmot_lookalike", "tiny_debug")
+           "full_mmmot_noisy", "full_mmmot_lookalike", "batched_val",
+           "fusion_C", "img_only", "lidar_only", "tiny_debug")
 
 
 def parse_args(argv=None):

@@ -3,11 +3,12 @@
 Only the knobs the flagship raw-frames path, the KITTI runner, the
 association quality stack, the look-alike stack (GNN refine, learned
 motion, the class gate), the int8 appearance trunk and training read are
-carried.  The values that the path
-supports but does not vary (VGG with batch norm and skip pooling, subabs
-correlation, a 2-layer link head, dual softmax, v2 new/end heads with
-max pooling, ``add`` score fusion over the fused/image/lidar branches,
-fusion variant C) are fixed by the modules themselves.  The crop size
+carried, with the modality switches and the score fusion of the
+single-branch presets and every solver of the reference.  The values
+that the path supports but does not vary (VGG with batch norm and skip
+pooling, subabs correlation, a 2-layer link head, dual softmax, v2
+new/end heads with max pooling, fusion variant C with ``keep_single``)
+are fixed by the modules themselves.  The crop size
 and the points per detection are the model's (the JAX ``data`` section
 repeats them).  Field names and defaults follow the JAX package's
 ``mmmot_tpu/config.py``.  No YAML is parsed: each preset spells out its
@@ -102,16 +103,32 @@ class ModelConfig:
                                        # calibrated on the data root by the
                                        # track and export CLIs; training
                                        # ignores it
+    use_image: bool = True             # the camera branch (appear_net)
+    use_lidar: bool = True             # the LiDAR branch (point_net)
+    score_fusion: str = "add"          # how the branches' link scores
+                                       # combine: add | avg | fused-only
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32/bfloat16, "
                              f"got {self.compute_dtype!r}")
+        if self.score_fusion not in ("add", "avg", "fused-only"):
+            raise ValueError(f"score_fusion must be add/avg/fused-only, "
+                             f"got {self.score_fusion!r}")
+        if not (self.use_image or self.use_lidar):
+            raise ValueError("fusion needs at least one modality: "
+                             "use_image and use_lidar are both off")
+        # A single modality's raw embedding stands in for ``fused`` and
+        # the single branches feed fused-width heads (the reference's
+        # keep_single checks).
         d = self.fusion.out_dim
-        if self.appearance.out_dim != d or self.point.out_dim != d:
-            raise ValueError(
-                "appearance.out_dim, point.out_dim and fusion.out_dim must "
-                "agree: the single branches feed fused-width heads")
+        for on, what, dim in ((self.use_image, "appearance", self.appearance),
+                              (self.use_lidar, "point", self.point)):
+            if on and dim.out_dim != d:
+                raise ValueError(
+                    f"{what}.out_dim={dim.out_dim} must equal "
+                    f"fusion.out_dim={d}: the single branches feed "
+                    "fused-width heads")
 
 
 @dataclass(frozen=True)
@@ -148,11 +165,6 @@ class DataConfig:
                 f"got {self.cloud_filter!r}")
 
 
-# Solvers of the reference that the port does not have yet (ROADMAP
-# Queue 1, "parts the flagship slice left out").
-UNPORTED_SOLVERS = ("sinkhorn", "greedy", "ilp", "lap", "native")
-
-
 @dataclass(frozen=True)
 class AssocConfig:
     """The association (``mmmot_tpu/config.py::AssocConfig``), with the
@@ -177,8 +189,13 @@ class AssocConfig:
       class groups (joint classes, ``data.track_class="All"``).
     """
 
-    solver: str = "auction"
+    solver: str = "auction"            # auction | sinkhorn | greedy (on
+                                       # the device) | ilp | lap | native
+                                       # (exact host oracles); an unknown
+                                       # name raises in ``associate``
     auction_scaling_steps: int = 8     # eps-scaling phases
+    sinkhorn_tau: float = 0.05         # Sinkhorn's entropy temperature
+    sinkhorn_iters: int = 100          # Sinkhorn's fixed iteration count
     link_threshold: float = 0.0
     use_det_scores: bool = False
     det_score_weight: float = 1.0
@@ -193,12 +210,6 @@ class AssocConfig:
     gate_predict: bool = False
 
     def __post_init__(self):
-        if self.solver in UNPORTED_SOLVERS:
-            raise NotImplementedError(
-                f"solver {self.solver!r} is not ported to mmmot_tpu_torch "
-                "(ROADMAP Queue 1); use 'auction'")
-        if self.solver != "auction":
-            raise ValueError(f"unknown solver {self.solver!r}")
         if self.coverage_max_miss < 0:
             raise ValueError(
                 f"coverage_max_miss must be >= 0, "
@@ -368,3 +379,40 @@ def full_mmmot_lookalike() -> Config:
                           iou_weight=1.0, ghost_coverage=True),
         train=dataclasses.replace(base.train, epochs=10,
                                   lr_schedule="cosine", warmup_steps=60))
+
+
+def batched_val() -> Config:
+    """``experiments/batched_val/config.yaml``: the flagship's model with
+    the Sinkhorn association and no training capacity (its ``train:``
+    has no ``compact_capacity``)."""
+    base = full_mmmot()
+    return dataclasses.replace(
+        base, name="batched_val", assoc=AssocConfig(solver="sinkhorn"),
+        train=dataclasses.replace(base.train, compact_capacity=0))
+
+
+def fusion_C() -> Config:
+    """``experiments/fusion_C/config.yaml``: ``batched_val`` scoring the
+    fused branch alone (``score_fusion: fused-only``, one link head)."""
+    base = batched_val()
+    return dataclasses.replace(
+        base, name="fusion_C",
+        model=dataclasses.replace(base.model, score_fusion="fused-only"))
+
+
+def img_only() -> Config:
+    """``experiments/img_only/config.yaml``: the camera alone (no
+    PointNet; its embedding is ``fused``, one link head), Sinkhorn."""
+    base = batched_val()
+    return dataclasses.replace(
+        base, name="img_only",
+        model=dataclasses.replace(base.model, use_lidar=False))
+
+
+def lidar_only() -> Config:
+    """``experiments/lidar_only/config.yaml``: the LiDAR alone (no VGG;
+    its embedding is ``fused``, one link head), Sinkhorn."""
+    base = batched_val()
+    return dataclasses.replace(
+        base, name="lidar_only",
+        model=dataclasses.replace(base.model, use_image=False))

@@ -8,7 +8,7 @@
 //   h_k       = relu(BN_eval(pair_k @ W1_k + b1_k))   (dot in f32, cast,
 //                                                      BN in f32, cast)
 //   score_k   = h_k . w2_k + b2_k                     (f32)
-//   link      = mask * (sum_k score_k + bias)         (f32 sum, cast)
+//   link      = mask * (sum_k score_k [/ K] + bias)   (f32 sum, cast)
 //   link_norm = dual masked softmax(link)
 //   new / end = v2 heads: max-pool link over rows / columns, then
 //               relu([feat | pooled] @ Wn1 + bn1) @ wn2 + bn2, masked.
@@ -65,7 +65,7 @@
 //   tile and the cp.async ring.
 //
 // Launch 2 (finish_kernel), grid (B): per frame pair, link = cast(sum_k
-// part [+ bias]) at valid pairs and an exact 0 elsewhere (every element
+// part [/ K] [+ bias]) at valid pairs and an exact 0 elsewhere (every element
 // written once, `link` is not zeroed by the wrapper), the dual softmax and the
 // max pools over it in shared memory, then the heads' epilogues from hs:
 // rnd(s + pooled * wp + b1) in f32, ReLU and the f32 dot with w2 (a warp
@@ -581,6 +581,12 @@ products_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // `link_bias`), added to the f32 branch sum before the mask select and
 // the cast, so the softmax and both pools read the biased link.  The
 // instance without it compiles to the bias-free instructions.
+//
+// avg (score_fusion="avg", the TPU kernel's `avg`): the f32 branch sum is
+// divided by K (an IEEE division, as the TPU kernel's acc / K: a product
+// with 1/K rounds differently at K=3) before the bias, the mask and the
+// cast.  K may be 1 (one score branch: fused-only, one modality), 2 (a
+// dead sensor's branch absent) or 3.
 template <typename T, bool kBias>
 __global__ void __launch_bounds__(kThreads)
 finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
@@ -591,7 +597,8 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
               const T* __restrict__ ew2, const float* __restrict__ eb2,
               T* __restrict__ link, T* __restrict__ norm,
               T* __restrict__ new_out, T* __restrict__ end_out,
-              const float* __restrict__ bias, int K, int N, int HH) {
+              const float* __restrict__ bias, int K, int N, int HH,
+              int avg) {
   constexpr int kLd = kMaxN + 1;  // conflict-free rows and columns
   __shared__ float link_s[kMaxN * kLd];
   __shared__ float row_s[kMaxN * kLd];
@@ -623,6 +630,11 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
 #pragma unroll
     for (int u = 0; u < kPer; ++u)
       if (tid + u * kThreads < NN) v[u] += pk[tid + u * kThreads];
+  }
+  if (avg) {
+    const float kf = (float)K;
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) v[u] = v[u] / kf;
   }
   if constexpr (kBias) {
     const float* pbias = bias + (long)pb * NN;
@@ -771,7 +783,7 @@ int launch_finish(const void* part, const void* hs, const void* mp,
                   const void* wn2, const void* bn2, const void* wep,
                   const void* be1, const void* ew2, const void* eb2,
                   void* link, void* norm, void* new_out, void* end_out,
-                  const void* bias, int B, int K, int N, int HH,
+                  const void* bias, int B, int K, int N, int HH, int avg,
                   cudaStream_t stream) {
   auto kernel = bias ? finish_kernel<T, true> : finish_kernel<T, false>;
   kernel<<<B, kThreads, 0, stream>>>(
@@ -779,7 +791,7 @@ int launch_finish(const void* part, const void* hs, const void* mp,
       (const uint8_t*)mc, (const float*)wnp, (const float*)bn1,
       (const T*)wn2, (const float*)bn2, (const float*)wep, (const float*)be1,
       (const T*)ew2, (const float*)eb2, (T*)link, (T*)norm, (T*)new_out,
-      (T*)end_out, (const float*)bias, K, N, HH);
+      (T*)end_out, (const float*)bias, K, N, HH, avg);
   return (int)cudaGetLastError();
 }
 
@@ -826,14 +838,16 @@ int mmmot_affinity_products(const void* a, const void* b, const void* mp,
 // end (compute dtype; every element written).  wn2 and ew2 are in the
 // compute dtype, wnp, bn1, bn2, wep, be1 and eb2 float32.  bias is a
 // contiguous float32 [B, N, N] added to the link before the mask, or
-// null for none.
+// null for none.  avg != 0 divides the branch sum by K first
+// (score_fusion="avg").
 int mmmot_affinity_finish(const void* part, const void* hs, const void* mp,
                           const void* mc, const void* wnp, const void* bn1,
                           const void* wn2, const void* bn2, const void* wep,
                           const void* be1, const void* ew2, const void* eb2,
                           void* link, void* norm, void* new_out,
                           void* end_out, const void* bias, int B, int K,
-                          int N, int HH, int is_bf16, void* stream) {
+                          int N, int HH, int avg, int is_bf16,
+                          void* stream) {
   if (B <= 0 || K <= 0 || N <= 0 || N > kMaxN)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -841,10 +855,10 @@ int mmmot_affinity_finish(const void* part, const void* hs, const void* mp,
     return launch_finish<__nv_bfloat16>(part, hs, mp, mc, wnp, bn1, wn2, bn2,
                                         wep, be1, ew2, eb2, link, norm,
                                         new_out, end_out, bias, B, K, N, HH,
-                                        s);
+                                        avg, s);
   return launch_finish<float>(part, hs, mp, mc, wnp, bn1, wn2, bn2, wep, be1,
                               ew2, eb2, link, norm, new_out, end_out, bias, B,
-                              K, N, HH, s);
+                              K, N, HH, avg, s);
 }
 
 }  // extern "C"

@@ -77,3 +77,17 @@ def augment_batch(gen: torch.Generator, batch: Dict[str, torch.Tensor]
     """Augment a training batch: ``apply_augment(batch,
     draw_augment(gen, batch))``."""
     return apply_augment(batch, draw_augment(gen, batch))
+
+
+def sensor_dropout(gen: torch.Generator, batch: Dict[str, torch.Tensor],
+                   image_drop: float = 0.0, lidar_drop: float = 0.0):
+    """Whole-batch sensor dropout for robustness training (the reference's
+    ``sensor_dropout``): the camera is dropped with probability
+    ``image_drop``, the LiDAR with ``lidar_drop`` unless the camera was
+    dropped, so never both.  Returns (batch, use_image, use_lidar), the
+    two 0-dim bool tensors on ``gen``'s device for branch gating; the
+    batch passes through unchanged."""
+    u = torch.rand((2,), generator=gen, device=gen.device)
+    drop_img = u[0] < image_drop
+    drop_lid = (u[1] < lidar_drop) & ~drop_img
+    return batch, ~drop_img, ~drop_lid

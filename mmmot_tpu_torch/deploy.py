@@ -228,15 +228,23 @@ def _frames_step(module: TrackingModule, crop: Tuple[int, int],
     det_mask = torch.as_tensor(det_mask, device=dev).bool()
     boxes, clouds, projs = boxes.float(), clouds.float(), projs.float()
     S, N = det_mask.shape
+    mcfg = module.net.cfg
+    crops = pts = pmask = None
     with torch.inference_mode():
-        crops = crop_and_resize_batched(images.float(), boxes, crop,
-                                        det_mask)
-        crops = normalize_crops(crops, scale=1.0 / 255.0)
-        pts, pmask = frustum_sample_batched(clouds, boxes, projs, point_len,
-                                            det_mask=det_mask)
+        # A modality the net does not have is not prepared.
+        if mcfg.use_image:
+            crops = crop_and_resize_batched(images.float(), boxes, crop,
+                                            det_mask)
+            crops = normalize_crops(crops, scale=1.0 / 255.0)
+        if mcfg.use_lidar:
+            pts, pmask = frustum_sample_batched(clouds, boxes, projs,
+                                                point_len, det_mask=det_mask)
         if capacity is None:
-            feats = module.extract(crops.flatten(0, 1), pts.flatten(0, 1),
-                                   pmask.flatten(0, 1), det_mask.flatten())
+            def flat(x):
+                return None if x is None else x.flatten(0, 1)
+
+            feats = module.extract(flat(crops), flat(pts), flat(pmask),
+                                   det_mask.flatten())
             feats = {k: v.reshape(S, N, -1) for k, v in feats.items()}
             kept = det_mask
         else:

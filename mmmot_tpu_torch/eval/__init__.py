@@ -6,4 +6,5 @@ from mmmot_tpu_torch.eval.hota import (HotaEvaluation, HotaMetrics,
 from mmmot_tpu_torch.eval.kitti_devkit import (IGNORED_BY_CLASS,
                                                TrackingEvaluation,
                                                TrackingMetrics,
-                                               evaluate_tracking)
+                                               evaluate_tracking,
+                                               read_seqmap)

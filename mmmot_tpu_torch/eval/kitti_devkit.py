@@ -342,6 +342,30 @@ class TrackingEvaluation:
         return m
 
 
+def read_seqmap(path: str) -> Dict[str, int]:
+    """Parse a KITTI devkit seqmap file -> {sequence name: num_frames}.
+
+    The reference devkit drives evaluation from
+    ``evaluate_tracking.seqmap.<split>`` files whose lines are
+    ``<seq> empty <first_frame> <n_frames>`` (e.g. ``0000 empty 000000
+    000154``); it reads the sequence list and the per-sequence frame count
+    from fields 0 and 3 (reference: kitti_devkit/evaluate_tracking.py ->
+    trackingEvaluation.loadGroundtruth / sequence setup).
+    """
+    out: Dict[str, int] = {}
+    with open(path) as fh:
+        for ln, line in enumerate(fh, 1):
+            fields = line.split()
+            if not fields:
+                continue
+            if len(fields) != 4:
+                raise ValueError(
+                    f"{path}:{ln}: expected 4 fields "
+                    f"'<seq> empty <first> <n_frames>', got {line!r}")
+            out[fields[0]] = int(fields[3])
+    return out
+
+
 def evaluate_tracking(gt_dir: str, result_dir: str,
                       sequences: Sequence[str], cls: str = "car",
                       per_sequence: bool = False,
@@ -353,8 +377,8 @@ def evaluate_tracking(gt_dir: str, result_dir: str,
     With ``per_sequence`` returns ``(overall, {seq: TrackingMetrics})``;
     with ``summary_dir`` also writes ``summary_<cls>.txt`` (devkit stats
     block) plus ``summary_<cls>_per_sequence.txt`` there.  ``num_frames``
-    optionally maps sequence name -> frame count (a seqmap) like the
-    devkit's per-sequence ``n_frames``;
+    optionally maps sequence name -> frame count (a seqmap, see
+    :func:`read_seqmap`) like the devkit's per-sequence ``n_frames``;
     without it the count is inferred from the labels present.
     """
     ev = TrackingEvaluation(cls=cls)

@@ -2,8 +2,11 @@
 
 Port of ``mmmot_tpu/kernels/affinity_kernel.py`` (``pallas_affinity``,
 ``build_affinity_params``).  For B frame pairs and the K score branches
-(fused, image, lidar), from the per-branch embeddings it computes the raw
+present (``fused`` first, then ``image`` / ``lidar`` where they score:
+K=3 for the flagship, 2 with a dead sensor, 1 for ``fused-only`` and the
+one-modality nets), from the per-branch embeddings it computes the raw
 link scores, the dual-softmax ``link_norm`` and the v2 new/end logits.
+With ``avg`` (``score_fusion="avg"``) the branch sum is divided by K.
 An optional ``link_bias`` [B, N, N] float32 (the learned motion term) is
 added to the branch sum before the mask, the softmax and the pools.
 
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -26,10 +29,11 @@ from mmmot_tpu_torch.kernels import check_tensor
 from mmmot_tpu_torch.kernels.build import build
 from mmmot_tpu_torch.models.affinity import correlation_tensor
 from mmmot_tpu_torch.models.layers import BN_EPS
-from mmmot_tpu_torch.models.tracking_net import BRANCHES, AffinityOutput
+from mmmot_tpu_torch.models.tracking_net import AffinityOutput
 from mmmot_tpu_torch.ops.masking import masked_max, masked_softmax, pair_mask
 
 MAX_N = 64      # csrc/affinity.cu kMaxN; _library checks that they agree
+MAX_K = 3       # score branches: fused, image, lidar
 
 # (name, compute-dtype?) for every parameter.
 PARAM_SPEC = (("w1", True), ("b1", True), ("bn_mean", False),
@@ -41,15 +45,18 @@ PARAM_SPEC = (("w1", True), ("b1", True), ("bn_mean", False),
               ("eb2", False))
 
 
-def build_affinity_params(net, compute_dtype: torch.dtype
+def build_affinity_params(net, compute_dtype: torch.dtype,
+                          branches: Optional[Tuple[str, ...]] = None
                           ) -> Dict[str, torch.Tensor]:
-    """Stack the link heads of the branches (``BRANCHES`` order) and split
+    """Stack the link heads of ``branches`` (default: the net's
+    ``score_branches``, in that order) and split
     the new/end first Dense into its feature rows and its pooled-evidence
     row.  Dense weights go to the compute dtype; BN terms and the scalar
     biases stay float32.  Shapes: w1 [K, D, H], b1 / bn_* [K, H],
     w2 [K, H, 1], b2 [K], wn1 / we1 [D, hh], wnp / wep [1, hh],
     bn1 / be1 [hh], wn2 / ew2 [hh, 1], bn2 / eb2 [1]."""
-    mods = [getattr(net, f"affinity_{b}") for b in BRANCHES]
+    mods = [getattr(net, f"affinity_{b}")
+            for b in branches or net.score_branches]
     cdt, f32 = compute_dtype, torch.float32
 
     def stack(fn, dt):
@@ -79,10 +86,11 @@ def build_affinity_params(net, compute_dtype: torch.dtype
 
 
 def link_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
-               link_bias=None):
+               link_bias=None, avg: bool = False):
     """Raw link scores [B, N, N]: per branch |a_i - b_j| @ W1 (f32
     accumulate, cast) + b1, eval BN in f32, ReLU, . w2 + b2 in f32;
-    summed over branches in f32, plus ``link_bias`` (f32), masked, cast.
+    summed over branches in f32 (divided by K with ``avg``), plus
+    ``link_bias`` (f32), masked, cast.
 
     a, b [B, K, N, D] (branch 0 = fused) in the compute dtype; masks
     [B, N] bool; link_bias [B, N, N] float32 or None.
@@ -98,6 +106,8 @@ def link_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
     score = torch.matmul(h.float(), p["w2"].float()[None, :, None])[..., 0]
     score = score + p["b2"][None, :, None, None]         # [B, K, N, N]
     link = score.sum(dim=1)
+    if avg:
+        link = link / score.shape[1]
     if link_bias is not None:
         link = link + link_bias
     return (link * pm.float()).to(cdt)
@@ -128,10 +138,10 @@ def heads_plain(link, a, b, mask_prev, mask_curr,
 
 
 def affinity_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
-                   link_bias=None) -> AffinityOutput:
+                   link_bias=None, avg: bool = False) -> AffinityOutput:
     """The kernel's function in PyTorch ops (materialises the
     [B, K, N, N, D] pair tensor); outputs in the compute dtype."""
-    link = link_plain(a, b, mask_prev, mask_curr, p, link_bias)
+    link = link_plain(a, b, mask_prev, mask_curr, p, link_bias, avg)
     return heads_plain(link, a, b, mask_prev, mask_curr, p)
 
 
@@ -158,25 +168,30 @@ def _library() -> ctypes.CDLL:
                            f"{lib.mmmot_affinity_max_n()}, MAX_N is {MAX_N}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mmmot_affinity_products.argtypes = [ptr] * 16 + [i32] * 7 + [ptr]
-    lib.mmmot_affinity_finish.argtypes = [ptr] * 17 + [i32] * 5 + [ptr]
+    lib.mmmot_affinity_finish.argtypes = [ptr] * 17 + [i32] * 6 + [ptr]
     lib.mmmot_affinity_products.restype = i32
     lib.mmmot_affinity_finish.restype = i32
     return lib
 
 
 def affinity_launches(a, b, mask_prev, mask_curr,
-                      params: Dict[str, torch.Tensor], link_bias=None):
+                      params: Dict[str, torch.Tensor], link_bias=None,
+                      avg: bool = False):
     """Check CUDA inputs, allocate the outputs and the kernel's scratch,
     and return ``(products, finish, out)``: two closures that each launch
     one of the kernel's two launches on the current stream (the dense
     products, then link, softmax and heads), and the ``AffinityOutput``
     they fill.  ``fused_affinity`` calls both; a caller may time each on
     its own.  Raises on any input the kernel does not take.  With
-    ``link_bias`` the second launch is the kernel's bias instance."""
+    ``link_bias`` the second launch is the kernel's bias instance; with
+    ``avg`` it divides the branch sum by K."""
     if a.device.type != "cuda":
         raise ValueError(f"fused_affinity: unsupported device {a.device}")
     B, K, N, D = a.shape
     cdt = a.dtype
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"fused_affinity: K={K} branches outside "
+                         f"1..{MAX_K}")
     if cdt not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_affinity: dtype {cdt} not supported")
     H = params["w1"].shape[-1]
@@ -235,33 +250,45 @@ def affinity_launches(a, b, mask_prev, mask_curr,
                                      "ew2", "eb2")),
             *(t.data_ptr() for t in out),
             None if link_bias is None else link_bias.data_ptr(), B, K, N, hh,
-            *tail)
+            int(avg), *tail)
 
     return products, finish, out
 
 
 def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor],
-                   link_bias=None) -> AffinityOutput:
-    """Fused affinity for a batch of frame pairs, with an optional
-    additive ``link_bias`` [B, N, N] float32.
+                   link_bias=None, avg: bool = False) -> AffinityOutput:
+    """Fused affinity for a batch of frame pairs of K = ``a.shape[1]``
+    branches, with an optional additive ``link_bias`` [B, N, N] float32;
+    ``avg`` divides the branch sum by K.
 
     CUDA tensors launch the CUDA kernel and count one launch in
     ``fused_affinity.launches`` (the bias-free instance) or in
-    ``fused_affinity.bias_launches`` (with ``link_bias``); CPU tensors
-    run ``affinity_plain``.  Raises on any input the kernel does not take.
+    ``fused_affinity.bias_launches`` (with ``link_bias``), and one in
+    ``fused_affinity.k_launches[K]`` and, with ``avg``, in
+    ``fused_affinity.avg_launches``; CPU tensors run ``affinity_plain``.
+    Raises on any input the kernel does not take.
     """
     if a.device.type == "cpu":
-        return affinity_plain(a, b, mask_prev, mask_curr, params, link_bias)
+        return affinity_plain(a, b, mask_prev, mask_curr, params, link_bias,
+                              avg)
     products, finish, out = affinity_launches(a, b, mask_prev, mask_curr,
-                                              params, link_bias)
+                                              params, link_bias, avg)
     products()
     finish()
     if link_bias is None:
         fused_affinity.launches += 1
     else:
         fused_affinity.bias_launches += 1
+    fused_affinity.k_launches[a.shape[1]] += 1
+    fused_affinity.avg_launches += int(avg)
     return out
 
 
-fused_affinity.launches = 0
-fused_affinity.bias_launches = 0
+def reset_launches() -> None:
+    """Every launch count of ``fused_affinity`` to 0."""
+    fused_affinity.launches = fused_affinity.bias_launches = 0
+    fused_affinity.avg_launches = 0
+    fused_affinity.k_launches = dict.fromkeys(range(1, MAX_K + 1), 0)
+
+
+reset_launches()

@@ -1,6 +1,7 @@
 """Build the CUDA sources of ``csrc/`` with ``nvcc`` into shared
 libraries with a plain C interface (loaded with ``ctypes`` by the kernel
-wrappers).
+wrappers), and the host C++ sources (``lap.cpp``, the native assignment
+oracle) with ``g++`` (``build_host``).
 
 The library lands in ``build/mmmot_tpu_torch/`` at the repository root,
 named by a hash of the source and the flags, so a second run reuses it.
@@ -24,6 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mmmot_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+
 build_logs: dict = {}      # name -> nvcc/ptxas output of this process's build
 
 
@@ -41,11 +44,11 @@ def find_nvcc() -> str:
         "PATH (the port's kernels are compiled on first use)")
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` (if not built yet); returns the .so."""
-    src = CSRC / f"{name}.cu"
+def _compile(name: str, src: Path, compiler, flags) -> Path:
+    """``compiler *flags -o <lib> src`` (if not built yet) into a library
+    named by a hash of the source and the flags; returns its path."""
     digest = hashlib.sha256(src.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     out = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if out.exists():
         return out
@@ -53,10 +56,10 @@ def build(name: str) -> Path:
     fd, tmp = tempfile.mkstemp(prefix=f".{out.name}.", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+        proc = subprocess.run([compiler(), *flags, "-o", tmp, str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (exit "
+            raise RuntimeError(f"{compiler.__name__} failed on {src} (exit "
                                f"{proc.returncode}):\n{proc.stderr}")
         build_logs[name] = proc.stderr
         os.replace(tmp, out)
@@ -64,6 +67,27 @@ def build(name: str) -> Path:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` (if not built yet); returns the .so."""
+    return _compile(name, CSRC / f"{name}.cu", find_nvcc, NVCC_FLAGS)
+
+
+def find_gxx() -> str:
+    """``$CXX``, else ``g++`` on ``PATH``."""
+    cxx = os.environ.get("CXX") or shutil.which("g++")
+    if not cxx:
+        raise RuntimeError("g++ not found: set CXX to a C++ compiler (the "
+                           "native oracle is compiled on first use)")
+    return cxx
+
+
+def build_host(name: str) -> Path:
+    """Compile the host source ``csrc/<name>.cpp`` with g++ (if not built
+    yet); returns the .so.  No ``-march=native``: the library does not
+    depend on the host that built it."""
+    return _compile(name, CSRC / f"{name}.cpp", find_gxx, GXX_FLAGS)
 
 
 def _kernel_label(mangled: str) -> str:

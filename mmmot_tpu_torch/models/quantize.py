@@ -239,8 +239,13 @@ def quantize_for_inference(net, data_cfg, sequences=None):
     crops,
     cut and ImageNet-normalised on the net's device by the tracker's own
     preprocessing.  Raises ``ValueError`` when the tree holds no
-    detections.  Returns ``net`` with ``quant_int8`` attached."""
+    detections, or when the net has no camera branch (``use_image``
+    off).  Returns ``net`` with ``quant_int8`` attached."""
     from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+
+    if not net.cfg.use_image:
+        raise ValueError("int8 appearance needs the camera branch: the "
+                         "model has use_image off")
     from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_batched,
                                                  normalize_crops)
 

@@ -7,7 +7,10 @@
 Module and parameter names follow the flax tree (``appear_net``,
 ``point_net``, ``fusion``, ``affinity_{fused,image,lidar}`` with their
 ``gnn_{r}`` rounds, ``motion``, ``new_end``, ``det_head``), so
-``compat.from_jax`` maps weights across by name.  An int8 trunk
+``compat.from_jax`` maps weights across by name.  As in flax, a module
+exists only where the config uses it: ``appear_net`` with ``use_image``,
+``point_net`` with ``use_lidar``, and an ``affinity_<b>`` for each of
+``score_branches(cfg)``.  An int8 trunk
 (``models/quantize.py``) attached as ``quant_int8`` takes the image
 branch of ``extract``; it is not part of the state dict.
 """
@@ -31,8 +34,13 @@ from mmmot_tpu_torch.models.pointnet import PointNet
 from mmmot_tpu_torch.models.quantize import quantized_appearance_apply
 from mmmot_tpu_torch.ops.masking import compact_indices, scatter_compact
 
-# Branches with their own link scorer, in kernel order (fused first).
-BRANCHES = ("fused", "image", "lidar")
+def score_branches(cfg: ModelConfig):
+    """The feature branches with a link scorer of their own, in kernel
+    order (``fused`` first): the single branches too only with
+    ``score_fusion`` other than ``fused-only`` and both modalities on."""
+    if cfg.score_fusion != "fused-only" and cfg.use_image and cfg.use_lidar:
+        return ("fused", "image", "lidar")
+    return ("fused",)
 
 
 class AffinityOutput(NamedTuple):
@@ -48,11 +56,15 @@ class TrackingNet(nn.Module):
         self.cfg = cfg
         dt = self.compute_dtype = dtype_of(cfg.compute_dtype)
         d = cfg.fusion.out_dim
-        self.appear_net = AppearanceNet(cfg.appearance, dt, cfg.remat)
-        self.point_net = PointNet(cfg.point, dt)
-        self.fusion = FusionModule(cfg.fusion, cfg.appearance.out_dim,
-                                   cfg.point.out_dim, dt)
-        for b in BRANCHES:
+        if cfg.use_image:
+            self.appear_net = AppearanceNet(cfg.appearance, dt, cfg.remat)
+        if cfg.use_lidar:
+            self.point_net = PointNet(cfg.point, dt)
+        self.fusion = FusionModule(
+            cfg.fusion, cfg.appearance.out_dim if cfg.use_image else None,
+            cfg.point.out_dim if cfg.use_lidar else None, dt)
+        self.score_branches = score_branches(cfg)
+        for b in self.score_branches:
             self.add_module(f"affinity_{b}", AffinityModule(
                 d, cfg.affinity.hidden_dim, dt, cfg.affinity.gnn_rounds))
         if cfg.affinity.motion_dim:
@@ -69,31 +81,49 @@ class TrackingNet(nn.Module):
 
     def extract(self, crops, points, point_mask, det_mask
                 ) -> Dict[str, torch.Tensor]:
-        """Per-detection {"fused", "image", "lidar"} embeddings; leading
-        axes are free, the last input axes are [h, w, 3] / [P, C].  With
-        an int8 trunk attached (``quant_int8``) the image branch runs it
+        """Per-detection {"fused", "image", "lidar"} embeddings ("image"
+        / "lidar" only where that modality runs); leading axes are free,
+        the last input axes are [h, w, 3] / [P, C].  ``crops=None`` (a
+        dead camera) or ``points=None`` (a dead LiDAR) skips that branch,
+        as does a net without it.  With an int8 trunk attached
+        (``quant_int8``) the image branch runs it
         (``quantized_appearance_apply``), the reference's ``quant_int8``
         branch of ``TrackingModule.extract``."""
-        if self.quant_int8 is not None:
-            img = quantized_appearance_apply(
-                self.quant_int8, self.appear_net, crops, det_mask,
-                self.compute_dtype)
-        else:
-            img = self.appear_net(crops, det_mask)
+        img = None
+        if self.cfg.use_image and crops is not None:
+            if self.quant_int8 is not None:
+                img = quantized_appearance_apply(
+                    self.quant_int8, self.appear_net, crops, det_mask,
+                    self.compute_dtype)
+            else:
+                img = self.appear_net(crops, det_mask)
         return self.extract_given_image(img, points, point_mask, det_mask)
 
     def extract_given_image(self, img_feat, points, point_mask, det_mask
                             ) -> Dict[str, torch.Tensor]:
-        """``extract`` with the image embeddings given: PointNet and
-        fusion only."""
-        lidar = self.point_net(points, point_mask, det_mask)
+        """``extract`` with the image embeddings given (or None): PointNet
+        and fusion only."""
+        lidar = None
+        if self.cfg.use_lidar and points is not None:
+            lidar = self.point_net(points, point_mask, det_mask)
         return self.fusion(img_feat, lidar, det_mask)
 
+    def present_branches(self, feats_prev, feats_curr):
+        """The score branches present on both sides, in kernel order (a
+        dead sensor's branch is absent)."""
+        branches = tuple(b for b in self.score_branches
+                         if b in feats_prev and b in feats_curr)
+        if not branches:
+            raise ValueError(f"no affinity branch of {self.score_branches} "
+                             f"present in feats {sorted(feats_prev)}")
+        return branches
+
     def gnn_refine(self, feats_prev, feats_curr, mask_prev, mask_curr):
-        """Each branch's embeddings after its ``gnn_rounds`` rounds of
-        message passing across the pair; other keys pass through."""
+        """Each present branch's embeddings after its ``gnn_rounds``
+        rounds of message passing across the pair; other keys pass
+        through."""
         out_p, out_c = dict(feats_prev), dict(feats_curr)
-        for b in BRANCHES:
+        for b in self.present_branches(feats_prev, feats_curr):
             out_p[b], out_c[b] = getattr(self, f"affinity_{b}").refine(
                 feats_prev[b], feats_curr[b], mask_prev, mask_curr)
         return out_p, out_c
@@ -104,12 +134,16 @@ class TrackingNet(nn.Module):
         return self.motion(box_prev, box_curr, mask_prev, mask_curr)
 
     def affinity_link(self, feats_prev, feats_curr, mask_prev, mask_curr):
-        """Raw link scores of the module path: each branch refined and
-        scored, summed, plus the motion term (from ``feats["box"]``)
-        when ``motion_dim`` > 0."""
+        """Raw link scores of the module path: each present branch
+        refined and scored, summed (divided by their count for
+        ``score_fusion="avg"``), plus the motion term (from
+        ``feats["box"]``) when ``motion_dim`` > 0."""
+        branches = self.present_branches(feats_prev, feats_curr)
         link = sum(getattr(self, f"affinity_{b}")(
             feats_prev[b], feats_curr[b], mask_prev, mask_curr)
-            for b in BRANCHES)
+            for b in branches)
+        if self.cfg.score_fusion == "avg":
+            link = link / len(branches)
         if self.cfg.affinity.motion_dim:
             link = link + self.motion_bias(
                 feats_prev["box"], feats_curr["box"], mask_prev,
@@ -145,8 +179,8 @@ class TrackingNet(nn.Module):
         ``compact_capacity`` valid (b, t, n) slots only and scatters them
         back; valid slots past it are dropped, and ``kept_mask`` [B, T,
         N] (also returned) replaces det_mask everywhere after."""
-        crops, points = batch["crops"], batch["points"]
-        point_mask, det_mask = batch["point_mask"], batch["det_mask"]
+        crops, points = batch.get("crops"), batch.get("points")
+        point_mask, det_mask = batch.get("point_mask"), batch["det_mask"]
         B, T, N = det_mask.shape
         if compact_capacity:
             total = B * T * N
@@ -154,7 +188,8 @@ class TrackingNet(nn.Module):
                                          compact_capacity)
 
             def g(x):
-                return x.reshape((total,) + x.shape[3:])[idx]
+                return None if x is None else \
+                    x.reshape((total,) + x.shape[3:])[idx]
 
             feats_c = self.extract(g(crops), g(points), g(point_mask), taken)
             feats = {k: scatter_compact(v, idx, taken, total).reshape(

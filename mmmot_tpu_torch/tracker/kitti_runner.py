@@ -27,8 +27,13 @@ detection's class (a coverage row under its track's), and the files are
 scored once per class (``summary_<cls>.txt``, ``hota_<cls>.txt`` for
 car, pedestrian and cyclist).
 
-Not ported, and raising ``NotImplementedError``: ``dead_sensor``,
-``point_source="box3d"`` and ``packed_cache``.
+``dead_sensor`` ("camera" or "lidar") simulates a failed sensor on the
+real pipeline: the dead modality's input work is skipped, the net runs
+on the one left and the affinity scores the branches left (two for the
+flagship), with a carried state that holds no feats of the dead branch.
+
+Not ported, and raising ``NotImplementedError``: ``point_source="box3d"``
+and ``packed_cache``.
 """
 
 from __future__ import annotations
@@ -42,8 +47,8 @@ import numpy as np
 import torch
 
 from mmmot_tpu_torch.config import DataConfig
-from mmmot_tpu_torch.tracker.sequence import \
-    track_sequences_from_frames_batched
+from mmmot_tpu_torch.tracker.sequence import (
+    check_dead_sensor, track_sequences_from_frames_batched)
 from mmmot_tpu_torch.tracker.tracker import TrackingModule, stack_states
 
 
@@ -74,9 +79,8 @@ def _seq_plan(arrs, window: int) -> Dict:
             "crop_window": crop_window}
 
 
-def _unsupported(data_cfg: DataConfig, dead_sensor) -> None:
+def _unsupported(data_cfg: DataConfig) -> None:
     for what, bad in (
-            ("dead_sensor", dead_sensor is not None),
             ("data.point_source='box3d'", data_cfg.point_source == "box3d"),
             ("data.packed_cache", data_cfg.packed_cache)):
         if bad:
@@ -136,7 +140,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                                                write_kitti_result)
     from mmmot_tpu_torch.eval import HotaEvaluation, TrackingEvaluation
 
-    _unsupported(data_cfg, dead_sensor)
+    _unsupported(data_cfg)
+    check_dead_sensor(dead_sensor)
     joint = data_cfg.track_class == "All"
     if joint and not module.class_gating:
         raise ValueError(
@@ -173,7 +178,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
         M_g = max(a.clouds.shape[1] for a in arrs_l)
         proj = torch.as_tensor(np.stack([a.proj for a in arrs_l]),
                                device=dev)
-        state = stack_states([module.init_state(N) for _ in members])
+        state = stack_states([module.init_state(N, dead_sensor)
+                              for _ in members])
         # Per output: its fill value and trailing shape (ghost outputs
         # have the N ghost slots of the 2N-slot state).
         fields = {"ids": (-1, ()), "det_score": (0.0, ())}
@@ -199,7 +205,7 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                 module, im, cl, bx, dm, proj, crop, P, cloud_valid=cv,
                 compact_capacity=capacity, extract_chunk=chunk,
                 crop_window=crop_window, state0=state, return_state=True,
-                det_cls=dcl[0] if joint else None)
+                det_cls=dcl[0] if joint else None, dead_sensor=dead_sensor)
             o = {k: out[k].float().cpu().numpy() if fill == 0.0
                  else out[k].cpu().numpy() for k, (fill, _) in fields.items()}
             n_dropped += int(out["n_dropped"].sum())

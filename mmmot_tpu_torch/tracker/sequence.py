@@ -13,8 +13,9 @@ with its execution strategies (``_scan_track``: ``_parallel_track``,
 3. The features are scattered back to [S, T, N] slots.
 4. The association (``_scan_track``).  The flagship's parallel pre-solve
    runs all S*T frame-pair affinities as one batched call (the fused
-   kernel on the GPU), then one batched auction, then propagates the IDs
-   frame by frame.  The quality stack's hybrid pre-solves run the raw
+   kernel on the GPU), then one batched solve (the auction, or the
+   configured Sinkhorn or greedy solver), then propagates the IDs frame
+   by frame.  The quality stack's hybrid pre-solves run the raw
    link scores as one or two batched calls, then a loop over the frames
    with one batched auction over the S sequences per frame.
 
@@ -35,7 +36,6 @@ import torch.nn.functional as F
 from mmmot_tpu_torch.assoc.solve import associate
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.models.layers import sigmoid
-from mmmot_tpu_torch.models.tracking_net import BRANCHES
 from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_gathered,
                                              normalize_crops)
 from mmmot_tpu_torch.ops.frustum import frustum_sample
@@ -293,7 +293,8 @@ def _revival_track(module: TrackingModule, feats, det_mask, state0):
     coverage = module.ghost_coverage
 
     # ---- batched link scores (optimistic masks) --------------------------
-    link_keys = BRANCHES + (("box",) if module.motion_on else ())
+    link_keys = module.net.present_branches(feats, state0.feats) + (
+        ("box",) if module.motion_on else ())
     D_run = min(Dd, T - 1)              # bands d >= T pair no frame
     bands = torch.zeros((S, T, Dd, N, N), dtype=cdt, device=dev)
     if D_run > 0:
@@ -442,20 +443,35 @@ def _require_capacity(compact_capacity: Optional[int]) -> int:
     return compact_capacity
 
 
+def check_dead_sensor(dead_sensor: Optional[str]) -> None:
+    if dead_sensor not in (None, "camera", "lidar"):
+        raise ValueError(f"dead_sensor must be camera/lidar, "
+                         f"got {dead_sensor!r}")
+
+
 def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                            det_mask, proj, crop_size: Tuple[int, int],
                            points_per_det: int, compact_capacity: int,
                            extract_chunk: Optional[int] = None,
                            crop_window: int = 512, cloud_valid=None,
-                           det_cls=None):
+                           det_cls=None, dead_sensor: Optional[str] = None):
     """Compact-first feature extraction over S sequences of raw frames.
 
     Arguments as for :func:`track_sequences_from_frames_batched`, as
-    tensors on ``module``'s device.  Returns (feats {branch: [S, T, N,
-    D]}, and ``"box"`` [S, T, N, 4] f32 when ``module.carry_boxes``,
-    ``"cls"`` [S, T, N, 1] f32 when ``module.class_gating``; kept
-    [S, T, N] bool: the valid slots that fit in the capacity).
+    tensors on ``module``'s device.  A dead camera (``dead_sensor=
+    "camera"``) skips the crops, a dead LiDAR the frustum sampling, and
+    the net runs on the modality left; a net without a modality
+    (``use_image`` / ``use_lidar`` off) skips its input work too (the
+    reference's compiled window drops it as dead code).  Returns (feats
+    {branch: [S, T, N, D]}, and ``"box"`` [S, T, N, 4] f32 when
+    ``module.carry_boxes``, ``"cls"`` [S, T, N, 1] f32 when
+    ``module.class_gating``; kept [S, T, N] bool: the valid slots that
+    fit in the capacity).
     """
+    check_dead_sensor(dead_sensor)
+    mcfg = module.net.cfg
+    use_cam = dead_sensor != "camera" and mcfg.use_image
+    use_lidar = dead_sensor != "lidar" and mcfg.use_lidar
     det_mask = det_mask.bool()
     boxes, proj = boxes.float(), proj.float()
     scale = 1.0 / 255.0 if images.dtype == torch.uint8 else 1.0
@@ -476,14 +492,19 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
 
     def extract(f_k, s_k, m_k):
         bx_k = boxes.reshape(S * T * N, 4)[s_k]
-        crops = crop_and_resize_gathered(images, f_k, bx_k, crop_size,
-                                         mask=m_k, window=crop_window)
-        crops = normalize_crops(crops, scale=scale)
-        pv = cloud_valid[f_k] if cloud_valid is not None else None
-        pts, pmask = frustum_sample(clouds[f_k], bx_k[:, None, :],
-                                    proj_s[f_k // T], points_per_det,
-                                    det_mask=m_k[:, None], point_valid=pv)
-        return module.extract(crops, pts[:, 0], pmask[:, 0], m_k)
+        crops = pts = pmask = None
+        if use_cam:
+            crops = crop_and_resize_gathered(images, f_k, bx_k, crop_size,
+                                             mask=m_k, window=crop_window)
+            crops = normalize_crops(crops, scale=scale)
+        if use_lidar:
+            pv = cloud_valid[f_k] if cloud_valid is not None else None
+            pts, pmask = frustum_sample(clouds[f_k], bx_k[:, None, :],
+                                        proj_s[f_k // T], points_per_det,
+                                        det_mask=m_k[:, None],
+                                        point_valid=pv)
+            pts, pmask = pts[:, 0], pmask[:, 0]
+        return module.extract(crops, pts, pmask, m_k)
 
     with torch.inference_mode(), f32_parity(module.parity):
         feats_c = _chunked(extract, (frame, slot, taken), S * capacity,
@@ -523,7 +544,7 @@ def track_sequences_from_frames_batched(
         cloud_valid=None, compact_capacity: Optional[int] = None,
         extract_chunk: Optional[int] = None, crop_window: int = 512,
         state0: Optional[TrackerState] = None, return_state: bool = False,
-        det_cls=None):
+        det_cls=None, dead_sensor: Optional[str] = None):
     """Track S sequences from raw frames on ``module``'s device.
 
     images [S, T, H, W, 3] uint8 (or float pixels), clouds [S, T, M, C],
@@ -534,7 +555,12 @@ def track_sequences_from_frames_batched(
     the detections extracted per sequence (``None``, the reference's
     per-slot branch, raises); valid detections past it are dropped and
     counted in ``n_dropped``.  ``state0`` is a state with a leading [S]
-    axis (default: empty).  Returns {"ids": [S, T, N] int32 (-1 at empty slots),
+    axis (default: empty).  ``dead_sensor`` ("camera" or "lidar")
+    simulates a failed sensor: its input work is skipped and the
+    affinity scores the branches left (see
+    :func:`extract_frames_batched`); a ``state0`` then carries no feats
+    of the dead branch (``TrackingModule.init_state(N, dead_sensor)``).
+    Returns {"ids": [S, T, N] int32 (-1 at empty slots),
     "det_score": [S, T, N], "n_dropped": [S]} and, with ghost coverage,
     "ghost_ids" [S, T, N] (-1 where no row), "ghost_boxes" [S, T, N, 4]
     and "ghost_scores" [S, T, N]; the final state too with
@@ -552,7 +578,7 @@ def track_sequences_from_frames_batched(
     feats, kept = extract_frames_batched(
         module, images, clouds, boxes, det_mask, proj, crop_size,
         points_per_det, compact_capacity, extract_chunk, crop_window,
-        cloud_valid, det_cls)
+        cloud_valid, det_cls, dead_sensor)
     out, final = _scan_track(module, feats, kept, state0)
     out["n_dropped"] = (det_mask.sum((1, 2)) - kept.sum((1, 2))).to(
         torch.int32)
@@ -574,7 +600,7 @@ def compact_extract(module: TrackingModule, crops, points, point_mask,
     idx, taken = compact_indices(det_mask.reshape(-1), capacity)
 
     def gather(x):
-        return x.reshape((T * N,) + x.shape[2:])[idx]
+        return None if x is None else x.reshape((T * N,) + x.shape[2:])[idx]
 
     with torch.inference_mode():
         feats_c = module.extract(gather(crops), gather(points),
@@ -594,7 +620,9 @@ def track_sequence(module: TrackingModule, crops, points, point_mask,
     reference) on ``module``'s device.
 
     crops [T, N, h, w, 3], points [T, N, P, C], point_mask [T, N, P],
-    det_mask [T, N] (numpy arrays or tensors); boxes [T, N, 4] when the
+    det_mask [T, N] (numpy arrays or tensors; ``crops=None`` or
+    ``points=None`` and ``point_mask=None`` for a dead sensor, whose
+    branch then drops out of the affinity); boxes [T, N, 4] when the
     module carries boxes (a class-gated module is refused: it needs the
     class ids of ``track_sequence_from_frames``).  With
     ``compact_capacity`` only the first ``compact_capacity`` valid
@@ -607,9 +635,10 @@ def track_sequence(module: TrackingModule, crops, points, point_mask,
                          "module tracks through track_sequence_from_frames")
     dev = module.device
     crops, points, point_mask, det_mask = (
-        torch.as_tensor(x, device=dev)
+        None if x is None else torch.as_tensor(x, device=dev)
         for x in (crops, points, point_mask, det_mask))
-    det_mask, point_mask = det_mask.bool(), point_mask.bool()
+    det_mask = det_mask.bool()
+    point_mask = None if point_mask is None else point_mask.bool()
     n_valid = det_mask.sum()
     if compact_capacity is not None:
         feats, det_mask = compact_extract(module, crops, points, point_mask,
@@ -635,14 +664,16 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
                                extract_chunk: Optional[int] = None,
                                crop_window: int = 512,
                                state0: Optional[TrackerState] = None,
-                               return_state: bool = False, det_cls=None):
+                               return_state: bool = False, det_cls=None,
+                               dead_sensor: Optional[str] = None):
     """Track one sequence from raw frames on ``module``'s device.
 
     images [T, H, W, 3] uint8 (or float pixels), clouds [T, M, C], boxes
     [T, N, 4] (l, t, r, b pixels), det_mask [T, N] bool, proj [3, 4],
     cloud_valid [T, M] bool or None (padded cloud entries), det_cls [T, N]
     class-group ids (read with the class gate); numpy arrays or tensors.
-    ``compact_capacity`` bounds the detections extracted (``None``, the
+    ``dead_sensor`` ("camera" or "lidar") as for
+    :func:`track_sequences_from_frames_batched`.  ``compact_capacity`` bounds the detections extracted (``None``, the
     reference's per-slot branch, raises); valid detections past it are
     dropped and counted in ``n_dropped``.  ``state0`` continues
     a longer sequence from the state an earlier window returned.  Returns
@@ -663,7 +694,7 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
         torch.as_tensor(proj, device=dev), crop_size, points_per_det,
         cloud_valid=one(cloud_valid), compact_capacity=compact_capacity,
         extract_chunk=extract_chunk, crop_window=crop_window, state0=state0,
-        return_state=True, det_cls=one(det_cls))
+        return_state=True, det_cls=one(det_cls), dead_sensor=dead_sensor)
     out = {k: v[0] for k, v in out.items()}
     if not return_state:
         return out

@@ -29,8 +29,7 @@ from mmmot_tpu_torch.kernels.affinity import (build_affinity_params,
                                               fused_affinity)
 from mmmot_tpu_torch.models.affinity import normalize_link
 from mmmot_tpu_torch.models.layers import fma, sigmoid
-from mmmot_tpu_torch.models.tracking_net import (BRANCHES, AffinityOutput,
-                                                 TrackingNet)
+from mmmot_tpu_torch.models.tracking_net import AffinityOutput, TrackingNet
 from mmmot_tpu_torch.ops.boxes import pairwise_iou
 
 # Per-slot feats that stay float32 whatever the compute dtype: bf16
@@ -198,7 +197,8 @@ class TrackingModule:
     tensors on the GPU, its plain version on the CPU.  With
     ``compute_dtype`` float32 every call runs with TF32 off (float32
     parity mode).  The kernel's parameters are packed from the net's
-    weights at the first affinity call: load weights before it.
+    weights at the first affinity call of each branch set (all score
+    branches, or those a dead sensor leaves): load weights before it.
 
     ``assoc_cfg`` (default ``AssocConfig()``) picks the association.
     ``parallel_assoc`` and ``hybrid_presolve`` pick the execution
@@ -214,7 +214,7 @@ class TrackingModule:
                  hybrid_presolve: Optional[bool] = None):
         self.net = net
         self.parity = net.compute_dtype == torch.float32
-        self._params = None
+        self._params = {}
         cfg = self.assoc_cfg = assoc_cfg or AssocConfig()
         # The parallel pre-solve batches every frame pair's LP, which is
         # sound only while decisions never feed the next pair: y_det
@@ -294,12 +294,15 @@ class TrackingModule:
         both."""
         return self.assoc_cfg.use_det_scores
 
-    def affinity_params(self) -> Dict[str, torch.Tensor]:
-        """Kernel parameters, packed once from the net's weights."""
-        if self._params is None:
-            self._params = build_affinity_params(self.net,
-                                                 self.net.compute_dtype)
-        return self._params
+    def affinity_params(self, branches: Optional[Tuple[str, ...]] = None
+                        ) -> Dict[str, torch.Tensor]:
+        """Kernel parameters of ``branches`` (default: every score
+        branch), packed once per branch tuple from the net's weights."""
+        branches = branches or self.net.score_branches
+        if branches not in self._params:
+            self._params[branches] = build_affinity_params(
+                self.net, self.net.compute_dtype, branches)
+        return self._params[branches]
 
     def make_state0(self, feat_dims: Dict[str, int],
                     num_dets: int) -> TrackerState:
@@ -310,12 +313,23 @@ class TrackingModule:
                               with_missed=True)
         return init_state(feat_dims, num_dets, device=self.device)
 
-    def init_state(self, num_slots: int) -> TrackerState:
+    def init_state(self, num_slots: int,
+                   dead_sensor: Optional[str] = None) -> TrackerState:
         """Empty state whose feats match what the tracking path carries
-        (``TrackingModule.init_state`` of the reference)."""
+        (``TrackingModule.init_state`` of the reference): ``fused`` and
+        the raw embedding of each modality that runs, the net's own less
+        the one ``dead_sensor`` ("camera" or "lidar") silences.
+
+        A one-modality net (``img_only``, ``lidar_only``) carries its
+        modality's embedding, which ``extract`` returns beside ``fused``;
+        the reference's ``init_state`` leaves it out, so its windowed
+        runner fails on such a net (ROADMAP Queue 3)."""
         c = self.net.cfg
-        dims = {"fused": c.fusion.out_dim, "image": c.appearance.out_dim,
-                "lidar": c.point.out_dim}
+        dims = {"fused": c.fusion.out_dim}
+        if c.use_image and dead_sensor != "camera":
+            dims["image"] = c.appearance.out_dim
+        if c.use_lidar and dead_sensor != "lidar":
+            dims["lidar"] = c.point.out_dim
         if self.carry_boxes:
             dims["box"] = 4
         if self.ghost_coverage:
@@ -335,17 +349,21 @@ class TrackingModule:
                         ) -> AffinityOutput:
         """The fused kernel's outputs for batched frame pairs: feats
         {branch: [B, N, D], and "box" [B, N, 4] with motion}, masks
-        [B, N].  The branch embeddings are refined first (GNN rounds,
-        with these masks) and the motion term enters as the kernel's
-        ``link_bias``; its new/end come from the refined rows."""
+        [B, N].  The score branches present in the feats stack into the
+        kernel's K axis (``fused`` first; a dead sensor's branch is
+        absent), and ``score_fusion="avg"`` divides their sum by K.  The
+        branch embeddings are refined first (GNN rounds, with these
+        masks) and the motion term enters as the kernel's ``link_bias``;
+        its new/end come from the refined rows."""
         net = self.net
         with torch.inference_mode(), f32_parity(self.parity):
             if net.cfg.affinity.gnn_rounds:
                 feats_prev, feats_curr = net.gnn_refine(
                     feats_prev, feats_curr, mask_prev, mask_curr)
             cdt = net.compute_dtype
-            a = torch.stack([feats_prev[b].to(cdt) for b in BRANCHES], dim=1)
-            b = torch.stack([feats_curr[b].to(cdt) for b in BRANCHES], dim=1)
+            branches = net.present_branches(feats_prev, feats_curr)
+            a = torch.stack([feats_prev[k].to(cdt) for k in branches], dim=1)
+            b = torch.stack([feats_curr[k].to(cdt) for k in branches], dim=1)
             bias = None
             if self.motion_on:
                 if "box" not in feats_prev or "box" not in feats_curr:
@@ -361,7 +379,8 @@ class TrackingModule:
             return fused_affinity(a.contiguous(), b.contiguous(),
                                   mask_prev.contiguous(),
                                   mask_curr.contiguous(),
-                                  self.affinity_params(), bias)
+                                  self.affinity_params(branches), bias,
+                                  avg=net.cfg.score_fusion == "avg")
 
     def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
                  ) -> AffinityOutput:

@@ -1,5 +1,8 @@
 """One ``tiny_debug`` float32 training step on the CPU and on another
-device, compared: how the GPU's training step is held to the CPU's.
+device, compared: how the GPU's training step is held to the CPU's.  The
+model may be switched to one of the single-branch forms (``model``: e.g.
+``{"use_lidar": False}`` for ``img_only``, ``{"score_fusion":
+"fused-only"}`` for ``fusion_C``).
 
 The step is sgd at lr 1e-2 with the clip active, compact-first at
 capacity 12, on a seeded synthetic batch; both devices start from the
@@ -19,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -34,16 +37,17 @@ LOSS_RTOL, LOSS_ATOL = 1e-4, 1e-5
 BN_FED_BIAS = re.compile(r"(conv_\d+|reduce_\d+|mlp_\d+|head_0)\.bias$")
 
 
-def tiny_step(device):
+def tiny_step(device, model: Optional[Dict] = None):
     """(metrics, gradients, state dict) of the step on ``device``, on the
-    CPU."""
+    CPU; ``model`` replaces fields of the tiny model config."""
     cfg = tiny_debug()
+    mcfg = dataclasses.replace(cfg.model, **(model or {}))
     tcfg = dataclasses.replace(cfg.train, optimizer="sgd", lr=1e-2,
                                warmup_steps=0, grad_clip=1.0)
     b = make_training_batch(np.random.default_rng(0), batch_size=2,
                             num_slots=8, crop_size=(32, 32),
                             points_per_det=16, drop_prob=0.1, fp_prob=0.2)
-    net = init_random_(TrackingNet(cfg.model, device=device), 0)
+    net = init_random_(TrackingNet(mcfg, device=device), 0)
     state = create_train_state(net, tcfg, 10)
     _, m = train_step(state, {k: torch.as_tensor(v, device=net.device)
                               for k, v in b.items()}, compact_capacity=12)
@@ -52,12 +56,15 @@ def tiny_step(device):
             {k: v.detach().cpu() for k, v in net.state_dict().items()})
 
 
-def step_agreement(device) -> Dict[str, object]:
-    """The step on the CPU and on ``device``, held to the tolerances
-    above; raises AssertionError naming the first tensor outside them.
+def step_agreement(device, model: Optional[Dict] = None
+                   ) -> Dict[str, object]:
+    """The step (of the ``model`` switches, as in ``tiny_step``) on the
+    CPU and on ``device``, held to the tolerances above; raises
+    AssertionError naming the first tensor outside them.
     Returns the losses, ``grad_norm`` and the worst error of the
     gradients and of the post-step tensors, each a share of its scale."""
-    (mc, gc, sc), (mg, gg, sg) = tiny_step("cpu"), tiny_step(device)
+    (mc, gc, sc), (mg, gg, sg) = (tiny_step("cpu", model),
+                                  tiny_step(device, model))
     if mc["grad_norm"] <= 1.0:
         raise AssertionError("train agreement: the clip is not active")
     for k in mc:

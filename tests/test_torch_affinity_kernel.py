@@ -17,12 +17,13 @@ from mmmot_tpu_torch.kernels import build as kbuild
 from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
                                               build_affinity_params,
                                               check_widths, fused_affinity)
-from mmmot_tpu_torch.models.tracking_net import BRANCHES
+from mmmot_tpu_torch.models.tracking_net import score_branches
 
 from tests.torch_port_fixtures import (assert_close, init_flax, port_net,
                                        tiny_cfg_jax, torch_one_thread)  # noqa: F401
 
 D = 64
+BRANCHES = score_branches(tiny_debug().model)     # fused, image, lidar
 
 @pytest.fixture(scope="module")
 def shared():

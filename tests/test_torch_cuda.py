@@ -7,10 +7,12 @@ so it runs on the GPU machine:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import pytest
 import torch
 
-from mmmot_tpu_torch.config import tiny_debug
+from mmmot_tpu_torch.config import AssocConfig, tiny_debug
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels.affinity import (affinity_plain,
                                               build_affinity_params,
@@ -110,6 +112,92 @@ def test_kernel_with_link_bias_matches_plain(gpu, dtype):
         assert (got.link.float() - plain.link.float()).abs().max() > 1e-2
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("branches,avg", [
+    (("fused",), False), (("fused", "lidar"), False),
+    (("fused", "image"), False), (("fused", "image", "lidar"), True),
+    (("fused",), True), (("fused", "lidar"), True)])
+def test_kernel_instances_match_plain(gpu, dtype, branches, avg):
+    """The K=1 and K=2 instances (one score branch; a dead sensor's branch
+    absent) and ``avg`` (the branch sum divided by K) against the plain
+    version, each counted under its K (and in ``avg_launches``)."""
+    dt = getattr(torch, dtype)
+    net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
+    params = build_affinity_params(net, dt, branches)
+    K = len(branches)
+    gen = torch.Generator(device=gpu).manual_seed(2)
+    for N, n_prev, n_curr in CASES:
+        B = len(n_prev)
+        a, b = (torch.randn((B, K, N, 64), generator=gen, device=gpu).to(dt)
+                for _ in range(2))
+        mp, mc = masks(N, n_prev, gpu), masks(N, n_curr, gpu)
+        before = (fused_affinity.k_launches[K], fused_affinity.avg_launches)
+        with f32_parity():
+            got = fused_affinity(a, b, mp, mc, params, avg=avg)
+            want = affinity_plain(a, b, mp, mc, params, avg=avg)
+        torch.cuda.synchronize()
+        assert (fused_affinity.k_launches[K], fused_affinity.avg_launches) \
+            == (before[0] + 1, before[1] + int(avg))
+        tol = 1e-4 if dtype == "float32" else 2.0 ** -5
+        for name, x, y in zip(got._fields, got, want):
+            scale = max(1.0, y.float().abs().max().item())
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= tol * scale, (K, avg, N, name, err)
+        pm = mp[:, :, None] & mc[:, None, :]
+        assert (got.link[~pm] == 0).all()
+
+
+def test_kernel_refuses_four_branches(gpu):
+    net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
+    params = build_affinity_params(net, torch.float32)
+    a = torch.zeros((1, 4, 8, 64), device=gpu)
+    m = torch.ones((1, 8), dtype=torch.bool, device=gpu)
+    with pytest.raises(ValueError, match="K=4"):
+        fused_affinity(a, a, m, m, params)
+
+
+def tiny_frames():
+    gen = torch.Generator().manual_seed(3)
+    T, N, H, W, M = 6, 8, 96, 320, 512
+    images = torch.randint(0, 256, (T, H, W, 3), generator=gen,
+                           dtype=torch.uint8)
+    clouds = torch.rand((T, M, 4), generator=gen) * torch.tensor(
+        [50.0, 6.0, 68.0, 1.0]) + torch.tensor([-25.0, -3.0, 2.0, 0.0])
+    l = torch.rand((T, N), generator=gen) * (W - 60)
+    t = torch.rand((T, N), generator=gen) * (H - 30)
+    boxes = torch.stack([l, t, l + 50, t + 25], -1)
+    det_mask = torch.rand((T, N), generator=gen) < 0.7
+    proj = torch.tensor([[180.0, 0, W / 2, 0], [0, 180.0, H / 2, 0],
+                         [0, 0, 1, 0]])
+    return images, clouds, boxes, det_mask, proj
+
+
+@pytest.mark.parametrize("model,solver,dead", [
+    (dict(score_fusion="fused-only"), "sinkhorn", None),
+    (dict(use_lidar=False), "sinkhorn", None),
+    (dict(use_image=False), "greedy", None),
+    ({}, "auction", "camera"), ({}, "sinkhorn", "lidar")])
+def test_tiny_single_branch_cpu_equals_gpu(gpu, model, solver, dead):
+    """tiny_debug float32 with one score branch, another solver or a
+    dead sensor: the same ids on the CPU (plain versions) and the GPU."""
+    cfg = tiny_debug()
+    mcfg = dataclasses.replace(cfg.model, **model)
+    images, clouds, boxes, det_mask, proj = tiny_frames()
+    T, N = det_mask.shape
+    ids = []
+    for dev in ("cpu", gpu):
+        net = init_random_(TrackingNet(mcfg, device=dev), 1)
+        with torch.no_grad():
+            for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+                head.dense_1.bias.fill_(-3.0)
+        out = track_sequence_from_frames(
+            TrackingModule(net, AssocConfig(solver=solver)), images, clouds,
+            boxes, det_mask, proj, (32, 32), cfg.model.point.point_len,
+            compact_capacity=T * N, crop_window=128, dead_sensor=dead)
+        ids.append(out["ids"].cpu())
+    assert torch.equal(ids[0], ids[1])
+
+
 def test_tiny_tracking_cpu_equals_gpu(gpu):
     cfg = tiny_debug()
     gen = torch.Generator().manual_seed(3)
@@ -148,6 +236,17 @@ def test_tiny_train_step_cpu_equals_gpu(gpu):
     from mmmot_tpu_torch.train.parity import step_agreement
 
     worst = step_agreement(gpu)["max_rel_err"]
+    assert max(worst.values()) <= 1e-3, worst
+
+
+@pytest.mark.parametrize("model", [dict(use_lidar=False),
+                                   dict(score_fusion="fused-only")])
+def test_single_branch_train_step_cpu_equals_gpu(gpu, model):
+    """The same step for the tiny ``img_only`` net (no PointNet, no
+    fusion weights) and the tiny ``fusion_C`` net (one link head)."""
+    from mmmot_tpu_torch.train.parity import step_agreement
+
+    worst = step_agreement(gpu, model)["max_rel_err"]
     assert max(worst.values()) <= 1e-3, worst
 
 

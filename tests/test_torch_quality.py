@@ -241,13 +241,20 @@ def test_assoc_config_rejects_what_reference_rejects(kw):
 
 
 def test_assoc_config_unported_parts_raise(quality_models):
-    """Solvers other than the auction are not ported: they raise rather
-    than run something else.  The class gate is ported
-    (tests/test_torch_lookalike.py)."""
+    """Every solver of the reference is ported (tests/test_torch_solvers.py
+    holds them to it); as in the reference, an unknown solver name
+    raises ``ValueError`` in ``associate`` and nothing else runs in its
+    place.  The class gate is ported (tests/test_torch_lookalike.py)."""
+    from mmmot_tpu_torch.assoc.solve import associate
+
     _, _, net = quality_models
-    for solver in ("sinkhorn", "greedy", "ilp"):
-        with pytest.raises(NotImplementedError, match="Queue 1"):
-            AssocConfig(solver=solver)
+    for solver in ("sinkhorn", "greedy", "ilp", "lap", "native"):
+        assert AssocConfig(solver=solver).solver == solver
+    z = torch.zeros((1, 2, 2))
+    m = torch.ones((1, 2), dtype=torch.bool)
+    with pytest.raises(ValueError, match="unknown solver 'hungarian'"):
+        associate(z, z[..., 0], z[..., 0], m, m,
+                  AssocConfig(solver="hungarian"))
     assert TrackingModule(net, AssocConfig(class_gate=True)).class_gating
     with pytest.raises(ValueError, match="unsound"):
         TrackingModule(net, AssocConfig(**NOISY), parallel_assoc=True)

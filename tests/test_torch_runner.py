@@ -190,17 +190,20 @@ def test_stack_states_round_trip(models):
 
 @pytest.mark.parametrize("field,value,arg", [
     ("point_source", "box3d", None), ("track_class", "All", None),
-    (None, None, "camera")])
+    ("packed_cache", True, None), (None, None, "radar")])
 def test_runner_unported_options_raise(models, tree, tmp_path, field, value,
                                        arg):
     """Unported options raise ``NotImplementedError``; ``track_class="All"``
     is ported and, as in the reference, raises ``ValueError`` without the
-    class gate it needs (tests/test_torch_lookalike.py runs it)."""
+    class gate it needs (tests/test_torch_lookalike.py runs it), and so
+    does a ``dead_sensor`` other than camera or lidar (the dead-sensor
+    runner is held to the reference in tests/test_torch_branches.py)."""
     _, _, net = models
     _, td = data_cfgs(tree)
     if field:
         td = dataclasses.replace(td, **{field: value})
     err, match = ((ValueError, "class_gate") if value == "All"
+                  else (ValueError, "dead_sensor") if arg
                   else (NotImplementedError, "not ported"))
     with pytest.raises(err, match=match):
         track_kitti_sequences(TrackingModule(net), td, str(tmp_path),
