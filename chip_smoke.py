@@ -191,7 +191,34 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    the GPU's and the CPU's ``solve_sinkhorn`` decisions must be equal; in
    bfloat16 the rows that differ are counted.  Its JSON line
    ``{"solvers": ...}`` precedes the kernel line, which ends with the
-   K=1, K=2 and avg instances.
+   K=1, K=2 and avg instances;
+13. model variants: (a) the fused kernel's other instances against
+   their plain version at D=H=512, hh=256, K=3, in float32 and
+   bfloat16, with holed masks and an empty frame: each correlation op
+   (``mul``, ``diff``, ``cosine``), ``subabs`` with ``mul`` and all four
+   ops (Dc=2048: the contraction runs one op segment at a time) at B=16
+   and B=128, N=32; the ``mean`` and ``softmax`` pools and the
+   ``single`` and ``none`` modes, and the instances of (c)'s two
+   runners, at B=16; N=128 (the revival band of ``max_dets`` 64) at
+   B=10 and B=2; every masked link exactly 0, timed as phase 3, with
+   ``torch.bmm`` on the W1 product at that Dc beside; (b) the tiny
+   float32 runner CPU against GPU, files byte-equal (or, where they
+   differ, the first differing auction call a near tie: each device's
+   assignment within ``TIE_GAP`` of the other's objective under both
+   devices' costs, printed), for fusion A with
+   the T-Net on ``mul`` (softmax pool, single mode), fusion B on all four
+   ops (mean pool, no softmax), ``keep_single`` off on ``cosine``, and two
+   configs the kernel does not cover (new/end v1, a 3-layer link head:
+   the module path on both devices, no launch), then the noisy revival
+   stack at ``max_dets`` 64 (2N = 128 state slots; its N=128 launches
+   counted); (c) at full width on the tree (S=2, window 64, seed-0
+   weights, the auction): ``full_mmmot`` with the first variant of (b),
+   then with the second over the first 64 frames; each with every count
+   set to 0 just before and read just after (one launch a window under
+   its ops, pool and mode), its FPS, auction rounds, a window timed by
+   stage and that window's kernel inputs held against the plain
+   version.  Its JSON line ``{"variants": ...}`` precedes the kernel
+   line, which ends with the runners' instances and N=128.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -224,6 +251,7 @@ from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
                                               affinity_plain,
                                               build_affinity_params,
                                               fused_affinity, heads_plain)
+from mmmot_tpu_torch.models.affinity import correlation_tensor
 from mmmot_tpu_torch.models.layers import fma
 from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
 from mmmot_tpu_torch.tracker.kitti_runner import track_kitti_sequences
@@ -333,15 +361,18 @@ def affinity_inputs(dtype, gen, dev, B, D=512, K=3):
     return a, b, masks[0].contiguous(), masks[1].contiguous()
 
 
-def affinity_bound(mp, mc, params, dtype, bias=None):
+def affinity_bound(a, mp, mc, params, dtype, bias=None):
     """(bound_ms, "bytes"|"operations"): the least time for the work these
     masks need (valid pairs and valid detections only) against the H100's
     peak for ``dtype``, or the bytes every input and output must move
-    (the float32 ``bias`` [B, N, N] among them when given)."""
-    K, D, H = params["w1"].shape
+    (the float32 ``bias`` [B, N, N] among them when given).  The
+    embeddings a, b [B, K, N, D] are D wide, the pair features Dc =
+    len(ops) * D (the rows of W1)."""
+    K, Dc, H = params["w1"].shape
+    D = a.shape[-1]
     hh = params["wn1"].shape[-1]
     np_, nc = mp.sum(1).double(), mc.sum(1).double()
-    flops = float((2 * K * np_ * nc * (D * H + H)
+    flops = float((2 * K * np_ * nc * (Dc * H + H)
                    + 2 * (np_ + nc) * (D * hh + hh)).sum())
     item = torch.empty((), dtype=dtype).element_size()
     B, N = mp.shape
@@ -354,10 +385,12 @@ def affinity_bound(mp, mc, params, dtype, bias=None):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_agreement(got, want, a, b, mp, mc, params, dtype, label):
+def check_agreement(got, want, a, b, mp, mc, params, dtype, label,
+                    pool="max", softmax_mode="dual"):
     """Kernel vs plain within the stated tolerance; every masked link
-    exactly 0.  ``label`` names the input in messages.  Returns the max
-    |kernel - plain| per output."""
+    exactly 0.  ``label`` names the input in messages; ``pool`` and
+    ``softmax_mode`` are the instance's.  Returns the max |kernel -
+    plain| per output."""
     errs = {k: max_err(x, y) for k, x, y in zip(got._fields, got, want)}
     if dtype == torch.float32:
         for k, x, y in zip(got._fields, got, want):
@@ -369,7 +402,8 @@ def check_agreement(got, want, a, b, mp, mc, params, dtype, label):
         if errs["link"] > TOL_BF16 * scale_of(want.link):
             raise AssertionError(f"{label} bfloat16 link: {errs['link']} > "
                                  f"{TOL_BF16} x {scale_of(want.link)}")
-        staged = heads_plain(got.link, a, b, mp, mc, params)
+        staged = heads_plain(got.link, a, b, mp, mc, params, pool,
+                             softmax_mode)
         for k in ("link_norm", "new", "end"):
             e = max_err(getattr(got, k), getattr(staged, k))
             if e > TOL_BF16 * scale_of(getattr(staged, k)):
@@ -382,38 +416,41 @@ def check_agreement(got, want, a, b, mp, mc, params, dtype, label):
     return errs
 
 
-def entry_band_inputs(dtype, gen, dev, B=None, D=512):
+def entry_band_inputs(dtype, gen, dev, B=None, D=512, n=2 * N):
     """B frame pairs shaped like the revival hybrid's entry band at
-    N = 2 * 32 = 64 slots (``tracker/sequence.py::_revival_track``): the
-    previous side is a state of 32 live slots and 32 ghost slots (a
-    random subset of the 64 valid), the current side 32 real slots (a
-    random subset valid) and 32 padded ones.  Pair 0 has an empty
-    previous side, as every entry pair of a run's first window has."""
+    n = 2 * 32 = 64 slots (``tracker/sequence.py::_revival_track``): the
+    previous side is a state of n/2 live slots and n/2 ghost slots (a
+    random subset of the n valid), the current side n/2 real slots (a
+    random subset valid) and n/2 padded ones.  Pair 0 has an empty
+    previous side, as every entry pair of a run's first window has.
+    n = 128 is the band of ``max_dets`` 64."""
     B = B or ENTRY_B
-    n = 2 * N
     a = torch.randn((B, 3, n, D), generator=gen, device=dev).to(dtype)
     b = torch.randn((B, 3, n, D), generator=gen, device=dev).to(dtype)
     mp = torch.rand((B, n), generator=gen, device=dev) < 0.6
     mc = torch.rand((B, n), generator=gen, device=dev) < 0.7
-    mc[:, N:] = False
+    mc[:, n // 2:] = False
     mp[0] = False
     return a, b, mp.contiguous(), mc.contiguous()
 
 
 def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None,
-                   avg=False):
+                   avg=False, ops=("subabs",), pool="max",
+                   softmax_mode="dual"):
     """Kernel vs plain on one input (with ``bias``, the kernel's bias
     instance, which must move the link; with ``avg``, the branch sum
-    divided by K), then kernel, per-launch, plain and library timings
+    divided by K; ``ops``, ``pool`` and ``softmax_mode`` pick the
+    instance), then kernel, per-launch, plain and library timings
     (device time, and time per call with the host's work; ``cuda_ms``)
     and the bound."""
     B = a.shape[0]
+    inst = dict(avg=avg, ops=ops, pool=pool, softmax_mode=softmax_mode)
     with f32_parity(dtype == torch.float32):
-        got = fused_affinity(a, b, mp, mc, params, bias, avg=avg)
-        want = affinity_plain(a, b, mp, mc, params, bias, avg=avg)
+        got = fused_affinity(a, b, mp, mc, params, bias, **inst)
+        want = affinity_plain(a, b, mp, mc, params, bias, **inst)
         torch.cuda.synchronize()
         errs = check_agreement(got, want, a, b, mp, mc, params, dtype,
-                               label)
+                               label, pool, softmax_mode)
         if bias is not None:
             moved = max_err(got.link, fused_affinity(a, b, mp, mc,
                                                      params).link)
@@ -427,31 +464,32 @@ def measure_kernel(a, b, mp, mc, params, dtype, label, bias=None,
         del want
         torch.cuda.empty_cache()
         plain_ms, plain_call_ms = cuda_ms(
-            lambda: affinity_plain(a, b, mp, mc, params, bias, avg=avg), 3)
+            lambda: affinity_plain(a, b, mp, mc, params, bias, **inst), 3)
         torch.cuda.empty_cache()
         products, finish, _ = affinity_launches(a, b, mp, mc, params, bias,
-                                                avg=avg)
+                                                **inst)
         ms, call_ms = cuda_ms(
-            lambda: fused_affinity(a, b, mp, mc, params, bias, avg=avg), 20)
+            lambda: fused_affinity(a, b, mp, mc, params, bias, **inst), 20)
         launch_ms = {"products": cuda_ms(products, 20)[0],
                      "finish": cuda_ms(finish, 20)[0]}
         # Library yardstick for the dominant product only: one batched
-        # matmul [K, B*N*N, D] x [K, D, H] over all pairs (no fused
+        # matmul [K, B*N*N, Dc] x [K, Dc, H] over all pairs (no fused
         # library call computes the whole function).
-        K, D, H = params["w1"].shape
-        pair = (a[:, :, :, None] - b[:, :, None]).abs()
-        pair = pair.permute(1, 0, 2, 3, 4).reshape(K, -1, D).contiguous()
+        K, Dc, H = params["w1"].shape
+        pair = correlation_tensor(a, b, ops)
+        pair = pair.permute(1, 0, 2, 3, 4).reshape(K, -1, Dc).contiguous()
         lib_ms, lib_call_ms = cuda_ms(lambda: torch.bmm(pair, params["w1"]),
                                       5)
         del pair, got
-    bound_ms, bound_by = affinity_bound(mp, mc, params, dtype, bias)
+    bound_ms, bound_by = affinity_bound(a, mp, mc, params, dtype, bias)
     per_pair = mp.sum(1) * mc.sum(1)
     pairs = int(per_pair.sum())
     # Launch 1's blocks with work, computed from the masks (the kernel
     # does not count them): one per 64 valid pairs and branch, and a
-    # head block per side with detections.
+    # head block per 64 detections of a side.
     tiles = int(a.shape[1] * ((per_pair + 63) // 64).sum()
-                + mp.any(1).sum() + mc.any(1).sum())
+                + ((mp.sum(1) + 63) // 64).sum()
+                + ((mc.sum(1) + 63) // 64).sum())
     n = mp.shape[1]
     stage(f"kernel {str(dtype)[6:]} {label} ({pairs} valid pairs of "
           f"{B * n * n}; {tiles} blocks with work by the masks): "
@@ -617,7 +655,8 @@ def stage_timers(mod, stages=None):
     (extraction, ``mod.affinity``, the association, the id propagation),
     and the fused kernel itself as "kernel".  Yields (times {stage: ms,
     summed over calls}, seen: "args" (a, b, mask_prev, mask_curr, params,
-    link_bias) and "out" of the fused kernel's last call, "kernel_calls"
+    link_bias), "kw" (its instance: avg, ops, pool, softmax_mode) and
+    "out" of the fused kernel's last call, "kernel_calls"
     [(args, out)] of every call, and "calls" {stage: [(ms, auction rounds
     run)] per call})."""
     import mmmot_tpu_torch.tracker.sequence as seq_mod
@@ -641,7 +680,8 @@ def stage_timers(mod, stages=None):
     timed_kernel = timer("kernel", fused_affinity)
 
     def kernel(*args, **kw):
-        seen["args"], seen["out"] = args, timed_kernel(*args, **kw)
+        seen["args"], seen["kw"] = args, kw
+        seen["out"] = timed_kernel(*args, **kw)
         seen["kernel_calls"].append((args, seen["out"]))
         return seen["out"]
 
@@ -898,12 +938,15 @@ def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner",
     for device, net in nets.items():
         before = fused_affinity.launches
         out = os.path.join(tmp, f"{tag}_agree_{torch.device(device).type}")
+        mod = TrackingModule(net, assoc)
         stats = track_kitti_sequences(
-            TrackingModule(net, assoc), data, out, window=AGREE_WINDOW,
+            mod, data, out, window=AGREE_WINDOW,
             batch_sequences=RUNNER_S, max_frames=AGREE_FRAMES,
             dead_sensor=dead_sensor)
         launched = fused_affinity.launches - before
-        if (device == "cpu") == (launched > 0):
+        # The kernel on the GPU for a config it covers, the module path
+        # (no launch) otherwise and on the CPU.
+        if (device != "cpu" and mod.fused_kernel) != (launched > 0):
             raise AssertionError(f"agreement run on {device}: {launched} "
                                  "kernel launches")
         if stats["n_dropped"]:
@@ -920,7 +963,7 @@ def runner_agreement(root: str, dev, tmp: str, nets=None, tag="runner",
     tie = tie_check() if differ else None
     stage(f"{tag} agreement: tiny_debug f32, {AGREE_FRAMES} frames x "
           f"{RUNNER_S} sequences, window {AGREE_WINDOW}: {len(cpu)} files, "
-          + (f"{differ} differ by a near tie of the greedy rounding {tie}"
+          + (f"{differ} differ by a near tie {tie}"
              if differ else "byte-equal on CPU and GPU"))
     return {"frames": AGREE_FRAMES, "window": AGREE_WINDOW,
             "files": sorted(cpu), "byte_equal": not differ,
@@ -1188,17 +1231,22 @@ def check_quality_ids(ids, det_mask, K: int) -> None:
             last[i] = t
 
 
-def quality_agreement(root: str, dev, tmp: str, cfg=None, model=None):
+def quality_agreement(root: str, dev, tmp: str, cfg=None, model=None,
+                      max_dets=None):
     """tiny_debug widths (``model``: tiny widths of another affinity) with
     ``cfg``'s association (default full_mmmot_noisy's), float32, on the
     first frames of both sequences, window 8, two per call, on the CPU
     (plain versions) and on the GPU (kernels): the result files, coverage
-    rows included, must match (``results_match``)."""
+    rows included, must match (``results_match``).  ``max_dets`` replaces
+    tiny_debug's 8 slots a frame (the revival's state holds twice as
+    many)."""
     import dataclasses
 
     cfg = cfg or full_mmmot_noisy()
     data = dataclasses.replace(tiny_debug().data, root=root,
                                det_source="noisy")
+    if max_dets:
+        data = dataclasses.replace(data, max_dets=max_dets)
     files, counts = {}, None
     for device in ("cpu", dev):
         before = kernel_launches()
@@ -1219,7 +1267,8 @@ def quality_agreement(root: str, dev, tmp: str, cfg=None, model=None):
         raise AssertionError("quality agreement: no coverage row to compare")
     loose = results_match(files["cpu"], files[dev], "quality agreement")
     stage(f"{cfg.name} agreement: tiny f32, {AGREE_FRAMES} frames x "
-          f"{RUNNER_S} sequences, window {AGREE_WINDOW}: "
+          f"{RUNNER_S} sequences, window {AGREE_WINDOW}, "
+          f"{data.max_dets} slots: "
           f"{len(files['cpu'])} files equal on CPU and GPU ({loose} "
           f"coverage scores within the float32 tolerance); {counts}")
     return dict(frames=AGREE_FRAMES, window=AGREE_WINDOW,
@@ -3372,6 +3421,329 @@ def instance_entries(kern, solvers):
     return out
 
 
+# Phase 13: the model variants and the rest of the fused kernel's
+# instances.  (a) each correlation op, two and four ops (Dc = 4 * 512 =
+# 2048, the op segments), the mean and softmax pools, the single and none
+# modes, both runners' instances, and N=128 (the revival band of
+# max_dets 64) against their plain version; (b) tiny float32 runners CPU
+# against GPU for each variant, the two the kernel does not cover (new/end
+# v1, a 3-layer link head: the module path, no launch) and the noisy
+# revival stack at max_dets 64 (2N = 128 state slots); (c) two full-width
+# variant runners on the tree, S=2, window 64, seed-0 weights.
+ALL_OPS = ("mul", "subabs", "diff", "cosine")
+# (label, ops, pool, mode, frame-pair counts)
+VARIANT_INSTANCES = (
+    ("mul", ("mul",), "max", "dual", SOLVER_B),
+    ("diff", ("diff",), "max", "dual", SOLVER_B),
+    ("cosine", ("cosine",), "max", "dual", SOLVER_B),
+    ("subabs+mul", ("subabs", "mul"), "max", "dual", SOLVER_B),
+    ("all four ops", ALL_OPS, "max", "dual", SOLVER_B),
+    ("pool mean", ("subabs",), "mean", "dual", (T,)),
+    ("pool softmax", ("subabs",), "softmax", "dual", (T,)),
+    ("mode single", ("subabs",), "max", "single", (T,)),
+    ("mode none", ("subabs",), "max", "none", (T,)),
+    ("runner A", ("mul",), "softmax", "single", (T,)),
+    ("runner B", ALL_OPS, "mean", "none", (T,)))
+WIDE_N, WIDE_B = 2 * 64, (ENTRY_B, 2)   # N=128: the entry band, the scan
+# Variant -> {model sub-config: {field: value}}; the tiny runners of (b)
+# and, at full width, the first two as the runners of (c).
+VARIANTS = {
+    "A_tnet_mul": dict(fusion={"variant": "A"}, point={"use_tnet": True},
+                       affinity={"correlation_ops": ("mul",),
+                                 "softmax_mode": "single"},
+                       new_end={"pool": "softmax"}),
+    "B_all_ops": dict(fusion={"variant": "B"},
+                      affinity={"correlation_ops": ALL_OPS,
+                                "softmax_mode": "none"},
+                      new_end={"pool": "mean"}),
+    "no_single_cosine": dict(fusion={"keep_single": False},
+                             affinity={"correlation_ops": ("cosine",)}),
+    "v1": dict(new_end={"version": 1},
+               affinity={"correlation_ops": ("diff",)}),
+    "layers3": dict(affinity={"num_layers": 3,
+                              "correlation_ops": ("subabs", "mul")})}
+
+
+def variant_model(model, sections):
+    """``model`` with fields of its sub-configs replaced."""
+    import dataclasses
+
+    return dataclasses.replace(model, **{
+        k: dataclasses.replace(getattr(model, k), **v)
+        for k, v in sections.items()})
+
+
+def instance_of(model):
+    """(ops, pool, mode) of a model config's fused-kernel instance."""
+    return (tuple(model.affinity.correlation_ops), model.new_end.pool,
+            model.affinity.softmax_mode)
+
+
+def check_variant_instances(dev):
+    """(a): each of ``VARIANT_INSTANCES`` at D=H=512, hh=256, N=32, then
+    N=128, against its plain version in float32 and bfloat16, with holed
+    masks and an empty frame, timed as phase 3 times K=3 (the library
+    yardstick is ``torch.bmm`` on the W1 product at that Dc)."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    report, nets = {}, {}
+    for label, ops, pool, mode, Bs in VARIANT_INSTANCES + (
+            ("N=128", ("subabs",), "max", "dual", WIDE_B),):
+        if ops not in nets:
+            nets[ops] = init_random_(TrackingNet(variant_model(
+                full_mmmot().model, {"affinity": {"correlation_ops": ops}}),
+                device=dev), 0)
+        for dtype in (torch.float32, torch.bfloat16):
+            params = build_affinity_params(nets[ops], dtype)
+            for B in Bs:
+                inputs = (entry_band_inputs(dtype, gen, dev, B, n=WIDE_N)
+                          if label == "N=128" else
+                          affinity_inputs(dtype, gen, dev, B))
+                report[label, dtype, B] = measure_kernel(
+                    *inputs, params, dtype, f"{label} B={B}", ops=ops,
+                    pool=pool, softmax_mode=mode)
+                del inputs
+            del params
+    del nets
+    torch.cuda.empty_cache()
+    return report
+
+
+@contextlib.contextmanager
+def auction_inputs():
+    """While open, each ``auction_lap`` call records, by device type, its
+    costs [S, M, M] (float32, on the CPU) and its assignment."""
+    import mmmot_tpu_torch.assoc.auction as auction_mod
+
+    calls = {"cpu": [], "cuda": []}
+    lap = auction_mod.auction_lap
+
+    def recorded(cost, *args, **kw):
+        rc, left = lap(cost, *args, **kw)
+        calls[cost.device.type].append((cost.detach().float().cpu(),
+                                        rc.cpu()))
+        return rc, left
+
+    recorded.rounds = lap.rounds   # the solver counts its rounds here
+    try:
+        with patched(auction_mod, "auction_lap", recorded):
+            yield calls
+    finally:
+        lap.rounds = recorded.rounds
+
+
+def auction_tie_report(calls_cpu, calls_gpu, what: str):
+    """The first auction call whose assignment differs between the CPU's
+    and the GPU's run (``calls_*``: (costs, assignment) in call order;
+    later calls see states that differ).  For each of its instances that
+    differ: the objective of each device's assignment (the sum of its
+    rows' costs) under each device's costs.  Raises unless both
+    assignments are optimal within ``TIE_GAP`` of each other under both
+    costs (a near tie of the LP), or when no assignment differs; returns
+    the call, the instances that differ and the largest gap."""
+    for k, ((x, rx), (y, ry)) in enumerate(zip(calls_cpu, calls_gpu)):
+        differ = torch.nonzero((rx != ry).any(-1))[:, 0].tolist()
+        if not differ:
+            continue
+
+        def objective(cost, rc):
+            rows = torch.arange(cost.shape[-1])[rc >= 0]
+            return float(cost[rows, rc[rc >= 0].long()].double().sum())
+
+        gaps = [max(abs(objective(c[i], rx[i]) - objective(c[i], ry[i]))
+                    for c in (x, y)) for i in differ]
+        if max(gaps) > TIE_GAP:
+            raise AssertionError(f"{what}: auction call {k}: instances "
+                                 f"{differ} differ by objective gaps {gaps}")
+        return {"call": k, "instances": len(differ), "max_gap": max(gaps)}
+    raise AssertionError(f"{what}: files differ, but every assignment of "
+                         f"the {len(calls_cpu)} auction calls agrees")
+
+
+def variant_agreement(root: str, dev, tmp: str):
+    """(b): the tiny float32 runner CPU against GPU (first 20 frames,
+    window 8, S=2), files byte-equal, for each of ``VARIANTS`` (the
+    kernel's launches for those it covers, none for v1 and the 3-layer
+    head; new/end output biases at -6 so that links win), or, where
+    files differ, the first differing auction call a near tie of the LP
+    (``auction_tie_report``, printed); then the noisy revival stack at
+    max_dets 64, whose state holds 2N = 128 slots, with its N=128
+    launches counted."""
+    import mmmot_tpu_torch.tracker.tracker as trk_mod
+    from mmmot_tpu_torch.kernels.affinity import kernel_supported
+
+    out = {}
+    for tag, sw in VARIANTS.items():
+        model = variant_model(tiny_debug().model, sw)
+        nets = {d: init_random_(TrackingNet(model, device=d), 7)
+                for d in ("cpu", dev)}
+        for net in nets.values():
+            with torch.no_grad():
+                for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+                    head.dense_1.bias.fill_(-6.0)
+        with auction_inputs() as calls:
+            out[tag] = runner_agreement(
+                root, dev, tmp, nets, f"variants {tag}",
+                tie_check=lambda: auction_tie_report(
+                    calls["cpu"], calls["cuda"], tag))
+        out[tag]["kernel"] = kernel_supported(model)
+    widths = []
+
+    def recorded(a, *args, **kw):
+        if a.is_cuda:
+            widths.append(a.shape[2])
+        return fused_affinity(a, *args, **kw)
+
+    with patched(trk_mod, "fused_affinity", recorded):
+        out["noisy_max_dets_64"] = quality_agreement(root, dev, tmp,
+                                                     max_dets=64)
+    n128 = widths.count(WIDE_N)
+    out["noisy_max_dets_64"]["n128_launches"] = n128
+    if n128 == 0:
+        raise AssertionError(f"noisy max_dets 64: no N=128 launch "
+                             f"({sorted(set(widths))})")
+    equal = sum(out[tag]["byte_equal"] for tag in VARIANTS)
+    stage(f"variants agreement: {equal} of {len(VARIANTS)} tiny runners "
+          f"byte-equal on CPU and GPU, the others a near tie; noisy revival "
+          f"at max_dets 64: {n128} launches at N=128 of {len(widths)}")
+    return out
+
+
+def variant_runner(name: str, root: str, tmp: str, dev, max_frames=None):
+    """``full_mmmot`` with ``VARIANTS[name]`` at full width through
+    ``track_kitti_sequences`` (S=2, window 64, the auction) with every
+    count set to 0 just before and read just after: no detection dropped,
+    finite scores, ids by the rules, one launch a window counted under
+    its instance (ops, pool, mode).  Then one window again under
+    ``stage_timers`` (load, extract, affinity, kernel, auction, ids,
+    window), and the kernel's output on that window's own inputs held
+    against its plain version."""
+    import dataclasses
+
+    from mmmot_tpu_torch.kernels.affinity import reset_launches
+
+    cfg = full_mmmot()
+    model = variant_model(cfg.model, VARIANTS[name])
+    net = init_random_(TrackingNet(model, device=dev), 0)
+    mod = TrackingModule(net, cfg.assoc)
+    data = dataclasses.replace(cfg.data, root=root)
+    ops, pool, mode = instance_of(model)
+    reset_launches()
+    auction_lap.rounds = 0
+    stats = track_kitti_sequences(
+        mod, data, f"{tmp}/{name}", window=RUNNER_WINDOW,
+        batch_sequences=RUNNER_S, max_frames=max_frames, evaluate=False)
+    launches = {"ops": fused_affinity.op_launches[ops],
+                "pool": fused_affinity.pool_launches[pool],
+                "mode": fused_affinity.mode_launches[mode],
+                "by_k": dict(fused_affinity.k_launches)}
+    rounds = auction_lap.rounds
+    K = len(net.score_branches)
+    check_runner_run(stats, name, K, launches["by_k"])
+    if {launches[k] for k in ("ops", "pool", "mode")} != {stats["n_windows"]}:
+        raise AssertionError(f"{name}: launches {launches} for "
+                             f"{stats['n_windows']} windows")
+    counted = stats["window_s"][1:]
+    auction_lap.rounds = 0
+    with stage_timers(mod) as (times, seen):
+        one = track_kitti_sequences(
+            mod, data, f"{tmp}/{name}_split", window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
+            evaluate=False)
+    times["load"] = one["load_s"] * 1e3
+    times["window"] = one["window_s"][0] * 1e3
+    a, b, mp, mc, params, bias = seen["args"]
+    with torch.inference_mode():
+        want = affinity_plain(a, b, mp, mc, params, bias, **seen["kw"])
+        errs = check_agreement(seen["out"], want, a, b, mp, mc, params,
+                               torch.bfloat16, f"{name} window", pool, mode)
+    result = {"instance": {"ops": list(ops), "pool": pool, "mode": mode},
+              "variant": VARIANTS[name], "K": K,
+              "frames": stats["frames_loaded"], "windows": stats["n_windows"],
+              "fps": stats["fps"], "frames_counted": stats["total_frames"],
+              "fps_every_window": stats["frames_loaded"]
+              / sum(stats["window_s"]),
+              "window_ms": [1e3 * x for x in stats["window_s"]],
+              "ms_per_window": (1e3 * sum(counted) / len(counted)
+                                if counted else None),
+              "load_s": stats["load_s"], "launches": launches,
+              "auction_rounds": rounds, "split_ms": times,
+              "split_auction_rounds": auction_lap.rounds,
+              "split_kernel_vs_plain_max_err": errs,
+              "split_frame_pairs": int(a.shape[0]),
+              "detections": sum(int(o["det_mask"].sum())
+                                for o in stats["outputs"].values())}
+    stage(f"variant runner {name} {result['instance']}: {result['frames']} "
+          f"frames, {result['windows']} windows, {stats['fps']:.1f} FPS "
+          f"after the first window ({result['fps_every_window']:.1f} over "
+          f"every window), windows {result['window_ms']} ms, "
+          f"{rounds} auction rounds, launches {launches}, split "
+          f"{times} ms ({auction_lap.rounds} rounds), window kernel vs "
+          f"plain {errs}")
+    del net, mod
+    torch.cuda.empty_cache()
+    return result
+
+
+def variants_phase(dev, smi: str, root: str, tmp: str):
+    """Phase 13: (a), (b) and (c) above; returns the kernel report of (a)
+    and the ``{"variants": ...}`` result."""
+    kern = check_variant_instances(dev)
+    agreement = variant_agreement(root, dev, tmp)
+    runs = {"A_tnet_mul": variant_runner("A_tnet_mul", root, tmp, dev),
+            "B_all_ops": variant_runner("B_all_ops", root, tmp, dev,
+                                        max_frames=RUNNER_WINDOW)}
+    return kern, {"agreement": agreement, "runs": runs, "gpu": smi}
+
+
+def variant_entries(kern, variants):
+    """The kernel line's entries of the new instances (B=16 bfloat16, or
+    the entry band's B=10 at N=128, with float32 beside), each with its
+    launches on its driven path: runner A's instance (mul, softmax pool,
+    single) and runner B's (all four ops, Dc=2048: the op segments and
+    the cosine scales; mean pool, none) from (c), N=128 from (b)'s noisy
+    revival run on the GPU.  Each op's, pool's and mode's own readings
+    ride in runner B's ``instances``."""
+    keys = ("ms", "call_ms", "launch_ms", "plain_ms", "plain_call_ms",
+            "library_ms", "library_call_ms", "bound_ms", "bound_by",
+            "valid_pairs", "errs", "frame_pairs", "slots")
+
+    def at(label, dtype, B):
+        return {k: kern[label, dtype, B][k] for k in keys}
+
+    runs = variants["runs"]
+    n128 = variants["agreement"]["noisy_max_dets_64"]["n128_launches"]
+    out = []
+    for label, what, launches, B in (
+            ("runner A", "ops mul, pool softmax, mode single "
+             "(affinity_kernel.py:56-57, :89-91, :167-168)",
+             runs["A_tnet_mul"]["launches"]["ops"], T),
+            ("runner B", "ops mul, subabs, diff, cosine (Dc=2048; "
+             "affinity_kernel.py:53-64, :127-132), pool mean (:84-88), "
+             "mode none (:163-164)", runs["B_all_ops"]["launches"]["ops"],
+             T),
+            ("N=128", "N=128, the revival band of max_dets 64 "
+             "(affinity_kernel.py:231-235)", n128, ENTRY_B)):
+        r = kern[label, torch.bfloat16, B]
+        out.append({
+            "name": f"fused_affinity[{label}]", "route": "cuda",
+            "source": "mmmot_tpu_torch/csrc/affinity.cu",
+            "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
+            "instance": what, "launches": launches,
+            "max_abs_err": max(r["errs"][k] for k in ("link", "link_norm",
+                                                      "new", "end")),
+            **{k: r[k] for k in keys},
+            "library_call": "torch.bmm [K, B*N*N, Dc] x [K, Dc, H] (the W1 "
+                            "product alone, over all pairs)",
+            "dtype": "bfloat16",
+            "float32": at(label, torch.float32, B)})
+    out[-1]["b2"] = at("N=128", torch.bfloat16, 2)
+    out[1]["instances"] = {
+        label: {f"{str(dt)[6:]}_b{B}": at(label, dt, B)
+                for dt in (torch.bfloat16, torch.float32) for B in Bs}
+        for label, _, _, _, Bs in VARIANT_INSTANCES}
+    return out
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -3435,6 +3807,8 @@ def main(argv=None) -> int:
         int8 = int8_phase(dev, smi, root, tmp, runner)
         torch.cuda.empty_cache()
         kern_inst, solvers = solvers_phase(dev, smi, root, tmp)
+        torch.cuda.empty_cache()
+        kern_var, variants = variants_phase(dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -3603,9 +3977,10 @@ def main(argv=None) -> int:
     print(json.dumps({"int8": {k: v for k, v in int8.items()
                                if k not in ("kernel", "runner_chunk")}}))
     print(json.dumps({"solvers": solvers}))
+    print(json.dumps({"variants": variants}))
     print(json.dumps({"kernels": [entry, entry_bias] + serving_entries
-                      + [entry_int8] + instance_entries(kern_inst,
-                                                        solvers)}))
+                      + [entry_int8] + instance_entries(kern_inst, solvers)
+                      + variant_entries(kern_var, variants)}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -32,26 +32,7 @@ import torch
 from mmmot_tpu_torch.assoc.cost import (Decisions, build_assignment_cost,
                                         decode_assignment)
 from mmmot_tpu_torch.assoc.greedy import greedy_matching
-
-WINDOW = 32         # XLA CPU's tree reduction: lines longer than this sum
-                    # in windows of this many entries
-
-
-def _ordered_sum(x, dim: int):
-    """float32 sum over ``dim`` in the reference's order: windows of
-    ``WINDOW`` entries, each summed left to right, then the window sums
-    left to right."""
-    x = x.movedim(dim, -1)
-    M = x.shape[-1]
-    if M > WINDOW:
-        if M % WINDOW:
-            x = torch.nn.functional.pad(x, (0, WINDOW - M % WINDOW))
-        x = x.unflatten(-1, (-1, WINDOW))
-        return _ordered_sum(_ordered_sum(x, -1), -1)
-    acc = x[..., 0]
-    for k in range(1, M):
-        acc = acc + x[..., k]
-    return acc
+from mmmot_tpu_torch.models.layers import ordered_sum
 
 
 def sinkhorn_lap(cost, tau: float = 0.05, iters: int = 100):
@@ -81,7 +62,7 @@ def sinkhorn_lap(cost, tau: float = 0.05, iters: int = 100):
         m = scaled.amax(dim=dim, keepdim=True)
         m = rnd(torch.where(torch.isfinite(m), m, zero))
         e = torch.exp(rnd(scaled - m))
-        s = rnd(_ordered_sum(e, dim).abs())
+        s = rnd(ordered_sum(e, dim).abs())
         out = rnd(rnd(torch.log(s)) + m.squeeze(dim))
         return rnd(out * -tau_c)
 

@@ -1,18 +1,21 @@
 """Configuration of the port: frozen dataclasses and Python presets.
 
-Only the knobs the flagship raw-frames path, the KITTI runner, the
+The knobs the flagship raw-frames path, the KITTI runner, the
 association quality stack, the look-alike stack (GNN refine, learned
 motion, the class gate), the int8 appearance trunk and training read are
 carried, with the modality switches and the score fusion of the
-single-branch presets and every solver of the reference.  The values
-that the path supports but does not vary (VGG with batch norm and skip
-pooling, subabs correlation, a 2-layer link head, dual softmax, v2
-new/end heads with max pooling, fusion variant C with ``keep_single``)
-are fixed by the modules themselves.  The crop size
-and the points per detection are the model's (the JAX ``data`` section
-repeats them).  Field names and defaults follow the JAX package's
-``mmmot_tpu/config.py``.  No YAML is parsed: each preset spells out its
-``experiments/<name>/config.yaml``.
+single-branch presets, every solver of the reference and the model
+variants: the correlation ops, the link head's depth and its softmax
+mode, new/end v1 or v2 with its pool, fusion A, B or C with or without
+``keep_single``, and the PointNet T-Net.  Their defaults are the
+shipped presets' (subabs, a 2-layer head, dual softmax, v2 heads with
+max pooling, fusion C with ``keep_single``, no T-Net), and the checks
+are the reference's.  Not carried: VGG without batch norm or skip
+pooling, DropBlock and the space-to-depth stem (ROADMAP Queue 1).  The
+crop size and the points per detection are the model's (the JAX
+``data`` section repeats them).  Field names and defaults follow the JAX
+package's ``mmmot_tpu/config.py``.  No YAML is parsed: each preset
+spells out its ``experiments/<name>/config.yaml``.
 """
 
 from __future__ import annotations
@@ -48,34 +51,58 @@ class AppearanceConfig:
 
 @dataclass(frozen=True)
 class PointConfig:
-    """PointNet over frustum point samples (no T-Net)."""
+    """PointNet over frustum point samples; ``use_tnet`` adds the input
+    transform (a 3x3 alignment of the xyz coordinates)."""
 
     point_len: int = 512
     channels: Tuple[int, ...] = (64, 128, 256, 512)
     out_dim: int = 512
+    use_tnet: bool = False
 
 
 @dataclass(frozen=True)
 class FusionConfig:
-    """Attention-gated fusion (variant C) with the single branches kept."""
+    """Modality fusion: A concatenates and projects, B adds the two
+    projections, C gates them (a sigmoid per modality).  ``keep_single``
+    keeps the raw per-modality embeddings beside ``fused`` (they score
+    links of their own)."""
 
+    variant: str = "C"
     out_dim: int = 512
+    keep_single: bool = True
+
+    def __post_init__(self):
+        if self.variant not in ("A", "B", "C"):
+            raise ValueError(f"fusion variant must be A/B/C, got "
+                             f"{self.variant!r}")
 
 
 @dataclass(frozen=True)
 class AffinityConfig:
-    """Per-branch link head: subabs correlation -> Dense+BN+ReLU -> Dense.
+    """Per-branch link head: the correlation ops (concatenated in this
+    order) -> ``num_layers - 1`` x (Dense+BN+ReLU) -> Dense, and the
+    link's ``softmax_mode`` (``dual`` rows and columns averaged,
+    ``single`` rows, ``none`` the masked raw link).
 
     ``gnn_rounds`` message-passing hops refine each branch's embeddings
     across the frame pair before the correlation (``GNNRefine``);
     ``motion_dim`` > 0 adds a learned box-geometry term of that hidden
     width to the raw link (``MotionScore``)."""
 
+    correlation_ops: Tuple[str, ...] = ("subabs",)
     hidden_dim: int = 512
+    num_layers: int = 2
     gnn_rounds: int = 0
+    softmax_mode: str = "dual"
     motion_dim: int = 0
 
     def __post_init__(self):
+        bad = set(self.correlation_ops) - {"mul", "subabs", "diff",
+                                           "cosine"}
+        if bad:
+            raise ValueError(f"unknown correlation ops {sorted(bad)}")
+        if self.softmax_mode not in ("dual", "single", "none"):
+            raise ValueError(f"bad softmax_mode {self.softmax_mode!r}")
         if self.motion_dim < 0:
             raise ValueError(f"motion_dim must be >= 0, got "
                              f"{self.motion_dim}")
@@ -83,9 +110,14 @@ class AffinityConfig:
 
 @dataclass(frozen=True)
 class NewEndConfig:
-    """v2 birth/death heads over max-pooled link evidence."""
+    """Birth/death heads: v2 reads each detection's feature and its
+    ``pool`` (max | mean | softmax) of the link's row or column, v1 the
+    feature alone.  An unknown pool raises where it is used
+    (``NewEndHead``), as in the reference."""
 
+    version: int = 2
     hidden_dim: int = 256
+    pool: str = "max"
 
 
 @dataclass(frozen=True)
@@ -124,7 +156,7 @@ class ModelConfig:
         d = self.fusion.out_dim
         for on, what, dim in ((self.use_image, "appearance", self.appearance),
                               (self.use_lidar, "point", self.point)):
-            if on and dim.out_dim != d:
+            if self.fusion.keep_single and on and dim.out_dim != d:
                 raise ValueError(
                     f"{what}.out_dim={dim.out_dim} must equal "
                     f"fusion.out_dim={d}: the single branches feed "

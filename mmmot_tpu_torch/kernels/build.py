@@ -93,7 +93,9 @@ def build_host(name: str) -> Path:
 def _kernel_label(mangled: str) -> str:
     """``products_kernel<bf16>`` for a mangled kernel template instance
     (``...15products_kernelI13__nv_bfloat16E...``), ``finish_kernel<f32,
-    bias>`` for one whose bool argument is true (``...IfLb1EE...``),
+    bias>`` for one whose bool argument is true (``...IfLb1EE...``;
+    ``products_kernel<bf16,segments>`` for the products' instance of
+    several correlation ops),
     ``int8_conv_main_kernel<128,64,false>`` / ``int8_conv_stem_kernel<64>``
     for the int8 conv's instances and their arguments (output-channel
     tile, K bytes a stage, HALO: ``...ILi128ELi64ELb0EEEv...``), else the
@@ -108,8 +110,9 @@ def _kernel_label(mangled: str) -> str:
                   mangled)
     if m is None:
         return mangled
-    bias = ",bias" if m.group(3) == "1" else ""
-    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}{bias}>"
+    flag = "segments" if m.group(1) == "products_kernel" else "bias"
+    flag = f",{flag}" if m.group(3) == "1" else ""
+    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}{flag}>"
 
 
 def ptxas_summary(log: str) -> dict:

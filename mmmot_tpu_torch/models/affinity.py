@@ -1,8 +1,9 @@
 """Per-branch link scorer, its message-passing refinement, the learned
 motion term and link normalisation: port of
-``mmmot_tpu/models/affinity.py`` (``correlation_tensor`` with ``subabs``,
-``GNNRefine``, ``MotionScore``, ``AffinityModule`` with a 2-layer head,
-``normalize_link`` dual mode).
+``mmmot_tpu/models/affinity.py`` (``correlation_tensor`` with the ops
+``mul``, ``subabs``, ``diff`` and ``cosine``, ``GNNRefine``,
+``MotionScore``, ``AffinityModule`` with ``num_layers - 1`` hidden
+layers, ``normalize_link`` in its three modes).
 
 This is the unfused module path; the fused CUDA kernel
 (``mmmot_tpu_torch/kernels/affinity.py``) computes the same function
@@ -14,14 +15,54 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mmmot_tpu_torch.models.layers import Dense, MaskedBatchNorm
+from mmmot_tpu_torch.models.layers import Dense, MaskedBatchNorm, ordered_sum
 from mmmot_tpu_torch.ops.boxes import MOTION_FEATURE_DIM, pair_motion_features
 from mmmot_tpu_torch.ops.masking import masked_softmax, pair_mask
 
+CORRELATION_OPS = ("mul", "subabs", "diff", "cosine")
+COSINE_EPS = 1e-8
 
-def correlation_tensor(a, b):
-    """subabs: a [.., Na, D], b [.., Nb, D] -> |a_i - b_j| [.., Na, Nb, D]."""
-    return (a[..., :, None, :] - b[..., None, :, :]).abs()
+
+def unit_rows(x):
+    """``x * rsqrt(sum(x * x) + 1e-8)`` over the last axis, in the dtype
+    of ``x``, rounded where the reference's compiled program rounds: the
+    squares stay float32 and are summed in its order (``ordered_sum``),
+    the sum is rounded to the dtype, the epsilon added (itself rounded
+    to the dtype) and rounded, ``rsqrt`` rounded, the product rounded.
+    In float32 none of these rounds.  ``rsqrt`` is ``1 / sqrt``, two
+    correctly rounded float32 operations, as the CUDA kernel takes it:
+    ``torch.rsqrt`` on the CPU is off by an ulp in about one value of
+    three."""
+    dt = x.dtype
+    xf = x.float()
+    s = ordered_sum(xf * xf, -1)
+    eps = torch.tensor(COSINE_EPS, dtype=dt).float()
+    t = (s.to(dt).float() + eps).to(dt).float()
+    r = (1.0 / torch.sqrt(t)).to(dt).float()
+    return (xf * r[..., None]).to(dt)
+
+
+def correlation_tensor(a, b, ops=("subabs",)):
+    """Pairwise interaction features: a [.., Na, D], b [.., Nb, D] ->
+    [.., Na, Nb, len(ops) * D], one D-wide block an op in ``ops`` order:
+    ``mul`` a_i * b_j, ``subabs`` |a_i - b_j|, ``diff`` a_i - b_j,
+    ``cosine`` the product of the unit rows (``unit_rows``), each in the
+    dtype of the inputs."""
+    ai, bj = a[..., :, None, :], b[..., None, :, :]
+    outs = []
+    for op in ops:
+        if op == "mul":
+            outs.append(ai * bj)
+        elif op == "subabs":
+            outs.append((ai - bj).abs())
+        elif op == "diff":
+            outs.append(ai - bj)
+        elif op == "cosine":
+            outs.append(unit_rows(a)[..., :, None, :]
+                        * unit_rows(b)[..., None, :, :])
+        else:
+            raise ValueError(f"unknown correlation op {op!r}")
+    return torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
 
 
 class GNNRefine(nn.Module):
@@ -70,18 +111,25 @@ class MotionScore(nn.Module):
 
 class AffinityModule(nn.Module):
     """Raw link scores [.., Np, Nc], zero at invalid pairs, after
-    ``gnn_rounds`` rounds of ``GNNRefine`` (submodules ``gnn_{r}``).  In
-    train mode the head's BatchNorm counts the valid pairs only."""
+    ``gnn_rounds`` rounds of ``GNNRefine`` (submodules ``gnn_{r}``): the
+    correlation ``ops``, then ``num_layers - 1`` x (``head_{i}``,
+    ``head_bn_{i}``, ReLU) and ``head_out``.  In train mode the heads'
+    BatchNorms count the valid pairs only."""
 
     def __init__(self, dim: int, hidden: int, dtype: torch.dtype,
-                 gnn_rounds: int = 0):
+                 gnn_rounds: int = 0, ops=("subabs",), num_layers: int = 2):
         super().__init__()
         for r in range(gnn_rounds):
             self.add_module(f"gnn_{r}", GNNRefine(dim, dtype))
         self.gnn_rounds = gnn_rounds
-        self.head_0 = Dense(dim, hidden, dtype)
-        self.head_bn_0 = MaskedBatchNorm(hidden, dtype)
-        self.head_out = Dense(hidden, 1, dtype)
+        self.ops = tuple(ops)
+        self.n_hidden = num_layers - 1
+        width = len(self.ops) * dim
+        for i in range(self.n_hidden):
+            self.add_module(f"head_{i}", Dense(width, hidden, dtype))
+            self.add_module(f"head_bn_{i}", MaskedBatchNorm(hidden, dtype))
+            width = hidden
+        self.head_out = Dense(width, 1, dtype)
 
     def refine(self, feat_prev, feat_curr, mask_prev, mask_curr):
         """The message-passing rounds alone: refined (prev, curr)."""
@@ -94,15 +142,23 @@ class AffinityModule(nn.Module):
         feat_prev, feat_curr = self.refine(feat_prev, feat_curr, mask_prev,
                                            mask_curr)
         pm = pair_mask(mask_prev, mask_curr)
-        x = self.head_0(correlation_tensor(feat_prev, feat_curr))
-        x = torch.relu(self.head_bn_0(x, pm))
+        x = correlation_tensor(feat_prev, feat_curr, self.ops)
+        for i in range(self.n_hidden):
+            x = getattr(self, f"head_{i}")(x)
+            x = torch.relu(getattr(self, f"head_bn_{i}")(x, pm))
         score = self.head_out(x)[..., 0]
         return score * pm.to(score.dtype)
 
 
-def normalize_link(score, mask_prev, mask_curr):
-    """Dual softmax: mean of the masked row and column softmaxes."""
+def normalize_link(score, mask_prev, mask_curr, mode: str = "dual"):
+    """The link's normalisation: ``dual`` the mean of the masked row and
+    column softmaxes, ``single`` the row softmax, ``none`` the masked
+    link itself."""
     pm = pair_mask(mask_prev, mask_curr)
+    if mode == "none":
+        return score * pm.to(score.dtype)
     row = masked_softmax(score, pm, dim=-1)
+    if mode == "single":
+        return row
     col = masked_softmax(score, pm, dim=-2)
     return 0.5 * (row + col)

@@ -29,6 +29,27 @@ def fma(a, b, c):
     return (a.double() * b.double() + c.double()).float()
 
 
+WINDOW = 32         # XLA CPU's tree reduction: lines longer than this sum
+                    # in windows of this many entries
+
+
+def ordered_sum(x, dim: int):
+    """float32 sum over ``dim`` in the order of the reference's compiled
+    CPU program: windows of ``WINDOW`` entries, each summed left to
+    right, then the window sums left to right."""
+    x = x.movedim(dim, -1)
+    M = x.shape[-1]
+    if M > WINDOW:
+        if M % WINDOW:
+            x = torch.nn.functional.pad(x, (0, WINDOW - M % WINDOW))
+        x = x.unflatten(-1, (-1, WINDOW))
+        return ordered_sum(ordered_sum(x, -1), -1)
+    acc = x[..., 0]
+    for k in range(1, M):
+        acc = acc + x[..., k]
+    return acc
+
+
 class Dense(nn.Linear):
     """``nn.Linear`` evaluated in ``dtype`` (weight [out, in])."""
 

@@ -37,15 +37,17 @@ from mmmot_tpu_torch.ops.masking import compact_indices, scatter_compact
 def score_branches(cfg: ModelConfig):
     """The feature branches with a link scorer of their own, in kernel
     order (``fused`` first): the single branches too only with
-    ``score_fusion`` other than ``fused-only`` and both modalities on."""
-    if cfg.score_fusion != "fused-only" and cfg.use_image and cfg.use_lidar:
+    ``score_fusion`` other than ``fused-only``, ``keep_single`` and both
+    modalities on."""
+    if (cfg.score_fusion != "fused-only" and cfg.fusion.keep_single
+            and cfg.use_image and cfg.use_lidar):
         return ("fused", "image", "lidar")
     return ("fused",)
 
 
 class AffinityOutput(NamedTuple):
     link: torch.Tensor         # raw summed link scores [.., Np, Nc]
-    link_norm: torch.Tensor    # dual-softmax normalised [.., Np, Nc]
+    link_norm: torch.Tensor    # normalised (softmax_mode) [.., Np, Nc]
     new: torch.Tensor          # [.., Nc]
     end: torch.Tensor          # [.., Np]
 
@@ -64,12 +66,15 @@ class TrackingNet(nn.Module):
             cfg.fusion, cfg.appearance.out_dim if cfg.use_image else None,
             cfg.point.out_dim if cfg.use_lidar else None, dt)
         self.score_branches = score_branches(cfg)
+        aff = cfg.affinity
         for b in self.score_branches:
             self.add_module(f"affinity_{b}", AffinityModule(
-                d, cfg.affinity.hidden_dim, dt, cfg.affinity.gnn_rounds))
-        if cfg.affinity.motion_dim:
-            self.motion = MotionScore(cfg.affinity.motion_dim)
-        self.new_end = NewEndHead(d, cfg.new_end.hidden_dim, dt)
+                d, aff.hidden_dim, dt, aff.gnn_rounds, aff.correlation_ops,
+                aff.num_layers))
+        if aff.motion_dim:
+            self.motion = MotionScore(aff.motion_dim)
+        self.new_end = NewEndHead(d, cfg.new_end.hidden_dim, dt,
+                                  cfg.new_end.version, cfg.new_end.pool)
         self.det_head = MLP2(d, cfg.new_end.hidden_dim, 1, dt)
         self.register_module("quant_int8", None)
         self.eval()
@@ -153,14 +158,15 @@ class TrackingNet(nn.Module):
     def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
                  ) -> AffinityOutput:
         """The unfused module path (``TrackingNet.affinity`` of the
-        reference): ``affinity_link``, the v2 heads on the RAW fused
-        embeddings, dual softmax."""
+        reference): ``affinity_link``, the new/end heads on the RAW fused
+        embeddings, the link normalised by ``softmax_mode``."""
         link = self.affinity_link(feats_prev, feats_curr, mask_prev,
                                   mask_curr)
         new, end = self.new_end(feats_prev["fused"], feats_curr["fused"],
                                 link, mask_prev, mask_curr)
-        return AffinityOutput(link, normalize_link(link, mask_prev,
-                                                   mask_curr), new, end)
+        return AffinityOutput(link, normalize_link(
+            link, mask_prev, mask_curr, self.cfg.affinity.softmax_mode),
+            new, end)
 
     def det_score(self, fused, det_mask):
         s = self.det_head(fused)[..., 0]

@@ -26,7 +26,8 @@ from mmmot_tpu_torch.assoc.solve import associate
 from mmmot_tpu_torch.config import AssocConfig
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels.affinity import (build_affinity_params,
-                                              fused_affinity)
+                                              fused_affinity,
+                                              kernel_supported)
 from mmmot_tpu_torch.models.affinity import normalize_link
 from mmmot_tpu_torch.models.layers import fma, sigmoid
 from mmmot_tpu_torch.models.tracking_net import AffinityOutput, TrackingNet
@@ -194,8 +195,12 @@ class TrackingModule:
     """A ``TrackingNet`` with its fused affinity and its association.
 
     The affinity runs through ``fused_affinity``: the CUDA kernel for
-    tensors on the GPU, its plain version on the CPU.  With
-    ``compute_dtype`` float32 every call runs with TF32 off (float32
+    tensors on the GPU, its plain version on the CPU.  ``fused_kernel``
+    (None = auto) picks it as the reference picks its Pallas kernel: on
+    for every config ``kernel_supported`` covers, and for the others
+    (new/end v1, a link head of other than 2 layers) the net's module
+    path on either device; forcing the kernel on such a config raises.
+    With ``compute_dtype`` float32 every call runs with TF32 off (float32
     parity mode).  The kernel's parameters are packed from the net's
     weights at the first affinity call of each branch set (all score
     branches, or those a dead sensor leaves): load weights before it.
@@ -211,10 +216,19 @@ class TrackingModule:
     def __init__(self, net: TrackingNet,
                  assoc_cfg: Optional[AssocConfig] = None,
                  parallel_assoc: Optional[bool] = None,
-                 hybrid_presolve: Optional[bool] = None):
+                 hybrid_presolve: Optional[bool] = None,
+                 fused_kernel: Optional[bool] = None):
         self.net = net
         self.parity = net.compute_dtype == torch.float32
         self._params = {}
+        if fused_kernel is None:
+            fused_kernel = kernel_supported(net.cfg)
+        elif fused_kernel and not kernel_supported(net.cfg):
+            raise ValueError(
+                "the fused affinity kernel does not cover this config "
+                "(needs num_layers=2, new_end version>=2); use "
+                "fused_kernel=None/False")
+        self.fused_kernel = fused_kernel
         cfg = self.assoc_cfg = assoc_cfg or AssocConfig()
         # The parallel pre-solve batches every frame pair's LP, which is
         # sound only while decisions never feed the next pair: y_det
@@ -316,9 +330,10 @@ class TrackingModule:
     def init_state(self, num_slots: int,
                    dead_sensor: Optional[str] = None) -> TrackerState:
         """Empty state whose feats match what the tracking path carries
-        (``TrackingModule.init_state`` of the reference): ``fused`` and
-        the raw embedding of each modality that runs, the net's own less
-        the one ``dead_sensor`` ("camera" or "lidar") silences.
+        (``TrackingModule.init_state`` of the reference): ``fused`` and,
+        with ``keep_single``, the raw embedding of each modality that
+        runs, the net's own less the one ``dead_sensor`` ("camera" or
+        "lidar") silences.
 
         A one-modality net (``img_only``, ``lidar_only``) carries its
         modality's embedding, which ``extract`` returns beside ``fused``;
@@ -326,9 +341,9 @@ class TrackingModule:
         runner fails on such a net (ROADMAP Queue 3)."""
         c = self.net.cfg
         dims = {"fused": c.fusion.out_dim}
-        if c.use_image and dead_sensor != "camera":
+        if c.fusion.keep_single and c.use_image and dead_sensor != "camera":
             dims["image"] = c.appearance.out_dim
-        if c.use_lidar and dead_sensor != "lidar":
+        if c.fusion.keep_single and c.use_lidar and dead_sensor != "lidar":
             dims["lidar"] = c.point.out_dim
         if self.carry_boxes:
             dims["box"] = 4
@@ -376,18 +391,27 @@ class TrackingModule:
                     bias = net.motion_bias(feats_prev["box"],
                                            feats_curr["box"], mask_prev,
                                            mask_curr).contiguous()
+            c = net.cfg
             return fused_affinity(a.contiguous(), b.contiguous(),
                                   mask_prev.contiguous(),
                                   mask_curr.contiguous(),
                                   self.affinity_params(branches), bias,
-                                  avg=net.cfg.score_fusion == "avg")
+                                  avg=c.score_fusion == "avg",
+                                  ops=c.affinity.correlation_ops,
+                                  pool=c.new_end.pool,
+                                  softmax_mode=c.affinity.softmax_mode)
 
     def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
                  ) -> AffinityOutput:
         """Batched frame pairs: feats {branch: [B, N, D]}, masks [B, N]
         -> link, link_norm, new, end.  With GNN rounds the new/end heads
         read the RAW fused embeddings (as the reference's module path
-        does), so they are recomputed from the kernel's link."""
+        does), so they are recomputed from the kernel's link.  Without
+        ``fused_kernel``: the net's module path."""
+        if not self.fused_kernel:
+            with torch.inference_mode(), f32_parity(self.parity):
+                return self.net.affinity(feats_prev, feats_curr, mask_prev,
+                                         mask_curr)
         out = self.kernel_affinity(feats_prev, feats_curr, mask_prev,
                                    mask_curr)
         if self.net.cfg.affinity.gnn_rounds:
@@ -399,9 +423,14 @@ class TrackingModule:
     def affinity_link(self, feats_prev, feats_curr, mask_prev, mask_curr):
         """Raw link scores [B, N, N] only (exactly 0 at invalid pairs), for
         the hybrid pre-solves and the sequential scan: the fused kernel's
-        ``link`` output on the GPU, the plain version's on the CPU.  The
-        normalisation and the new/end heads are derived from it with the
-        exact carried masks."""
+        ``link`` output on the GPU, the plain version's on the CPU (the
+        module path's without ``fused_kernel``).  The normalisation and
+        the new/end heads are derived from it with the exact carried
+        masks."""
+        if not self.fused_kernel:
+            with torch.inference_mode(), f32_parity(self.parity):
+                return self.net.affinity_link(feats_prev, feats_curr,
+                                              mask_prev, mask_curr)
         return self.kernel_affinity(feats_prev, feats_curr, mask_prev,
                                     mask_curr).link
 
@@ -411,7 +440,7 @@ class TrackingModule:
             return self.net.det_score(fused, det_mask)
 
     def new_end(self, feat_prev, feat_curr, link, mask_prev, mask_curr):
-        """The v2 new/end logits from a raw (masked) link."""
+        """The new/end logits from a raw (masked) link."""
         with torch.inference_mode(), f32_parity(self.parity):
             return self.net.new_end(feat_prev, feat_curr, link, mask_prev,
                                     mask_curr)
@@ -421,7 +450,8 @@ class TrackingModule:
                         box_curr=None, cls_prev=None,
                         cls_curr=None) -> Decisions:
         """One frame's association from its raw link [S, Mp, Mc]: the
-        normalisation, the spatial and class gates, the new/end heads and
+        normalisation (``softmax_mode``), the spatial and class gates,
+        the new/end heads and
         the LP.  ``det_prev``/``det_curr`` are the det-head logits of the
         two sides (read only with ``use_det_scores``), ``cls_prev``/
         ``cls_curr`` their class-group ids [S, M] (read only with the
@@ -429,7 +459,8 @@ class TrackingModule:
         pre-solves."""
         cfg = self.assoc_cfg
         with torch.inference_mode():
-            link_norm = normalize_link(link, mask_prev, mask_curr)
+            link_norm = normalize_link(link, mask_prev, mask_curr,
+                                       self.net.cfg.affinity.softmax_mode)
             if self.spatial_gating:
                 link_norm = apply_spatial_gate(link_norm, box_prev,
                                                box_curr, cfg)

@@ -1,8 +1,13 @@
 """The fused affinity of the port: ``affinity_plain`` (the CUDA kernel's
 plain version) against the JAX package's Pallas kernel in interpret mode
-and against ``TrackingNet.affinity``, with shared weights.  The CUDA
+and against ``TrackingNet.affinity``, with shared weights, for every
+instance: the correlation ops (one, two, all four: W1 of len(ops) x D
+rows, a net of those ops each), the pools and softmax modes (the same
+weights, the JAX net configured with them), and N up to 128.  The CUDA
 kernel itself is held to ``affinity_plain`` on the card by
 tests/test_torch_cuda.py and ``chip_smoke.py``."""
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +16,7 @@ import torch
 
 from mmmot_tpu.kernels import build_affinity_params as j_build_params
 from mmmot_tpu.kernels import pallas_affinity
+from mmmot_tpu.models import model_entry
 from mmmot_tpu.models.affinity import normalize_link as j_normalize_link
 from mmmot_tpu_torch.config import full_mmmot, tiny_debug
 from mmmot_tpu_torch.kernels import build as kbuild
@@ -31,6 +37,38 @@ def shared():
     jnet, variables = init_flax(jcfg)
     net = port_net(variables, tiny_debug().model)
     return jcfg, jnet, variables, net
+
+
+def with_instance(model_cfg, ops, pool, mode):
+    """``model_cfg`` with the correlation ops, new/end pool and softmax
+    mode of an instance."""
+    return dataclasses.replace(
+        model_cfg,
+        affinity=dataclasses.replace(model_cfg.affinity,
+                                     correlation_ops=ops, softmax_mode=mode),
+        new_end=dataclasses.replace(model_cfg.new_end, pool=pool))
+
+
+@pytest.fixture(scope="module")
+def instance_nets(shared):
+    """(JAX config, flax net, variables, port net) of an instance: the
+    shared weights for subabs (a pool or mode changes no weight), a net
+    initialised with the ops otherwise (W1 has len(ops) x D rows)."""
+    cache = {}
+
+    def get(ops, pool, mode):
+        if ops not in cache:
+            if ops == ("subabs",):
+                cache[ops] = shared[2]
+            else:
+                cache[ops] = init_flax(with_instance(
+                    tiny_cfg_jax().model, ops, "max", "dual"))[1]
+        variables = cache[ops]
+        jcfg = with_instance(tiny_cfg_jax().model, ops, pool, mode)
+        net = port_net(variables, with_instance(tiny_debug().model, ops,
+                                                pool, mode))
+        return jcfg, model_entry(jcfg), variables, net
+    return get
 
 def slot_masks(N, spec):
     """One row per frame pair: an int is a prefix count of valid slots,
@@ -56,7 +94,37 @@ CASES = {
     # The additive link bias (the learned motion term), with an empty
     # frame and holes: added before the mask, the softmax and the pools.
     "link_bias": (8, [5, 0, (0, 3, 6)], [8, 4, (1, 3, 7)]),
+    # N above 64 (the revival's 2N slots at max_dets 64): holed masks, an
+    # empty frame on either side, a full frame.
+    "n100": (100, [(0, 7, 33, 64, 65, 99), 0, 100],
+             [tuple(range(1, 100, 3)), 57, 0]),
+    "n128": (128, [128, (5, 64, 96, 127), 0],
+             [tuple(range(0, 128, 2)), 0, (31, 32, 63, 64, 127)]),
 }
+# Instances (correlation ops, pool, softmax mode) of the cases below;
+# every other case runs the shipped instance (subabs, max, dual).
+INSTANCES = {
+    "op_mul": (("mul",), "max", "dual"),
+    "op_diff": (("diff",), "max", "dual"),
+    "op_cosine": (("cosine",), "max", "dual"),
+    "ops_subabs_mul": (("subabs", "mul"), "max", "dual"),
+    "ops_all_four": (("mul", "subabs", "diff", "cosine"), "max", "dual"),
+    "pool_mean": (("subabs",), "mean", "dual"),
+    "pool_softmax": (("subabs",), "softmax", "dual"),
+    "mode_single": (("subabs",), "max", "single"),
+    "mode_none": (("subabs",), "max", "none"),
+    "n128_all_ops_softmax_none": (("mul", "subabs", "diff", "cosine"),
+                                  "softmax", "none"),
+    "n100_cosine_mean_single": (("cosine",), "mean", "single"),
+}
+for _name in INSTANCES:
+    CASES[_name] = ((128, [128, (5, 64, 96, 127), 0],
+                     [tuple(range(0, 128, 2)), 0, (31, 32, 63, 64, 127)])
+                    if _name.startswith("n128") else
+                    (100, [(0, 7, 33, 64, 65, 99), 0, 100],
+                     [tuple(range(1, 100, 3)), 57, 0])
+                    if _name.startswith("n100") else
+                    (8, [5, 0, (0, 3, 6)], [8, 4, (1, 3, 7)]))
 
 def test_params_match_reference(shared):
     jcfg, _, variables, net = shared
@@ -68,8 +136,11 @@ def test_params_match_reference(shared):
         assert_close(got[k], ref[k], err_msg=k)
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_plain_matches_pallas_interpret_and_module_path(shared, case):
-    jcfg, jnet, variables, net = shared
+def test_plain_matches_pallas_interpret_and_module_path(shared,
+                                                        instance_nets, case):
+    ops, pool, mode = INSTANCES.get(case, (("subabs",), "max", "dual"))
+    jcfg, jnet, variables, net = (shared if case not in INSTANCES
+                                  else instance_nets(ops, pool, mode))
     N, n_prev, n_curr = CASES[case]
     a, b, mp, mc = pair_batch(len(case), len(n_prev), N, n_prev, n_curr)
     bias = None
@@ -77,13 +148,16 @@ def test_plain_matches_pallas_interpret_and_module_path(shared, case):
         bias = np.random.default_rng(5).normal(
             0, 2, (len(n_prev), N, N)).astype(np.float32)
     params = build_affinity_params(net, torch.float32)
+    assert params["w1"].shape[1] == len(ops) * D
     got = affinity_plain(*map(torch.from_numpy, (a, b, mp, mc)), params,
-                         None if bias is None else torch.from_numpy(bias))
+                         None if bias is None else torch.from_numpy(bias),
+                         ops=ops, pool=pool, softmax_mode=mode)
     ref = pallas_affinity(*map(jnp.asarray, (a, b, mp, mc)),
                           j_build_params(variables, jcfg, BRANCHES,
                                          jnp.float32), interpret=True,
                           link_bias=None if bias is None
-                          else jnp.asarray(bias))
+                          else jnp.asarray(bias), ops=ops, pool=pool,
+                          softmax_mode=mode)
     fp = {k: jnp.asarray(a[:, i]) for i, k in enumerate(BRANCHES)}
     fc = {k: jnp.asarray(b[:, i]) for i, k in enumerate(BRANCHES)}
     mod = jnet.apply(variables, fp, fc, jnp.asarray(mp), jnp.asarray(mc),
@@ -110,6 +184,11 @@ def test_plain_matches_pallas_interpret_and_module_path(shared, case):
     if case == "empty_frame":
         assert (got.link.numpy()[0] == 0).all()
         assert (got.new.numpy()[1] == 0).all()
+    if case in INSTANCES:      # the instance is not the shipped one's
+        shipped = affinity_plain(*map(torch.from_numpy, (a, b, mp, mc)),
+                                 build_affinity_params(shared[3],
+                                                       torch.float32))
+        assert any((x - y).abs().max() > 1e-4 for x, y in zip(got, shipped))
 
 def test_cpu_tensors_take_the_plain_version(shared):
     _, _, _, net = shared
@@ -147,11 +226,11 @@ def test_build_is_keyed_atomic_and_cached(tmp_path, monkeypatch):
 @pytest.mark.parametrize("preset", [tiny_debug, full_mmmot])
 def test_check_widths_takes_the_presets(preset):
     m = preset().model
-    for N in (1, 32, 64):
+    for N in (1, 32, 64, 128):
         check_widths(N, m.fusion.out_dim, m.affinity.hidden_dim,
                      m.new_end.hidden_dim)
 
-@pytest.mark.parametrize("widths", [(0, 64, 32, 32), (65, 64, 32, 32),
+@pytest.mark.parametrize("widths", [(0, 64, 32, 32), (129, 64, 32, 32),
                                     (32, 72, 32, 32), (32, 64, 36, 32),
                                     (32, 64, 32, 12), (32, 0, 32, 32)])
 def test_check_widths_rejects_untiled_widths(widths):

@@ -147,6 +147,129 @@ def test_kernel_instances_match_plain(gpu, dtype, branches, avg):
         assert (got.link[~pm] == 0).all()
 
 
+def variant_model(**sections):
+    """tiny_debug's model with fields of its sub-configs replaced:
+    ``affinity={"correlation_ops": ...}`` and the like."""
+    m = tiny_debug().model
+    return dataclasses.replace(m, **{
+        k: dataclasses.replace(getattr(m, k), **v)
+        for k, v in sections.items()})
+
+
+# (correlation ops, pool, softmax mode): each op, several ops, each pool
+# and mode, and one instance that mixes them.
+INSTANCES = [(("mul",), "max", "dual"), (("diff",), "max", "dual"),
+             (("cosine",), "max", "dual"), (("subabs", "mul"), "max", "dual"),
+             (("mul", "subabs", "diff", "cosine"), "max", "dual"),
+             (("subabs",), "mean", "dual"), (("subabs",), "softmax", "dual"),
+             (("subabs",), "max", "single"), (("subabs",), "max", "none"),
+             (("cosine", "mul"), "softmax", "none")]
+# N above 64: holed, empty and full frames at N=100 and N=128.
+WIDE_CASES = [(100, [(0, 7, 33, 64, 65, 99), 0, 100],
+               [tuple(range(1, 100, 3)), 57, 0]),
+              (128, [128, (5, 64, 96, 127), 0],
+               [tuple(range(0, 128, 2)), 0, (31, 32, 63, 64, 127)])]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("ops,pool,mode", INSTANCES)
+def test_kernel_ops_pools_modes_match_plain(gpu, dtype, ops, pool, mode):
+    """The correlation ops (W1 of len(ops) x D rows), the pools and the
+    softmax modes against the plain version at every case, N=100 and
+    N=128 among them, each counted under its instance."""
+    dt = getattr(torch, dtype)
+    net = init_random_(TrackingNet(variant_model(
+        affinity={"correlation_ops": ops, "softmax_mode": mode},
+        new_end={"pool": pool}), device=gpu), 0)
+    params = build_affinity_params(net, dt)
+    assert params["w1"].shape[1] == 64 * len(ops)
+    gen = torch.Generator(device=gpu).manual_seed(4)
+    for N, n_prev, n_curr in CASES + WIDE_CASES:
+        B = len(n_prev)
+        a, b = (torch.randn((B, 3, N, 64), generator=gen, device=gpu).to(dt)
+                for _ in range(2))
+        mp, mc = masks(N, n_prev, gpu), masks(N, n_curr, gpu)
+        before = (fused_affinity.op_launches[ops],
+                  fused_affinity.pool_launches[pool],
+                  fused_affinity.mode_launches[mode])
+        kw = dict(ops=ops, pool=pool, softmax_mode=mode)
+        with f32_parity():
+            got = fused_affinity(a, b, mp, mc, params, **kw)
+            want = affinity_plain(a, b, mp, mc, params, **kw)
+        torch.cuda.synchronize()
+        assert (fused_affinity.op_launches[ops],
+                fused_affinity.pool_launches[pool],
+                fused_affinity.mode_launches[mode]) == tuple(
+                    x + 1 for x in before)
+        tol = 1e-4 if dtype == "float32" else 2.0 ** -5
+        for name, x, y in zip(got._fields, got, want):
+            scale = max(1.0, y.float().abs().max().item())
+            err = (x.float() - y.float()).abs().max().item()
+            assert err <= tol * scale, (ops, pool, mode, N, name, err)
+        pm = mp[:, :, None] & mc[:, None, :]
+        assert (got.link[~pm] == 0).all()
+        if mode == "none":
+            assert torch.equal(got.link_norm, got.link)
+
+
+def test_kernel_refuses_n_above_128(gpu):
+    net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
+    params = build_affinity_params(net, torch.float32)
+    a = torch.zeros((1, 3, 129, 64), device=gpu)
+    m = torch.ones((1, 129), dtype=torch.bool, device=gpu)
+    with pytest.raises(ValueError, match="N=129"):
+        fused_affinity(a, a, m, m, params)
+
+
+# Model variants: fusion A with the T-Net, mul, the softmax pool and the
+# single mode; fusion B with all four ops, the mean pool and no softmax;
+# one score branch (keep_single off) on cosine; and two the kernel does
+# not cover (new/end v1, a 3-layer link head: the module path).
+VARIANTS = {
+    "A_tnet_mul": dict(fusion={"variant": "A"}, point={"use_tnet": True},
+                       affinity={"correlation_ops": ("mul",),
+                                 "softmax_mode": "single"},
+                       new_end={"pool": "softmax"}),
+    "B_all_ops": dict(fusion={"variant": "B"},
+                      affinity={"correlation_ops": ("mul", "subabs", "diff",
+                                                    "cosine"),
+                                "softmax_mode": "none"},
+                      new_end={"pool": "mean"}),
+    "no_single_cosine": dict(fusion={"keep_single": False},
+                             affinity={"correlation_ops": ("cosine",)}),
+    "v1": dict(new_end={"version": 1}),
+    "layers3": dict(affinity={"num_layers": 3})}
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_tiny_variant_cpu_equals_gpu(gpu, name):
+    """tiny_debug float32 variants: the same ids on the CPU (plain
+    versions) and the GPU; the kernel runs for the variants it covers,
+    the module path (no launch) for the others."""
+    from mmmot_tpu_torch.kernels.affinity import (kernel_supported,
+                                                  reset_launches)
+
+    mcfg = variant_model(**VARIANTS[name])
+    images, clouds, boxes, det_mask, proj = tiny_frames()
+    T, N = det_mask.shape
+    ids = []
+    for dev in ("cpu", gpu):
+        net = init_random_(TrackingNet(mcfg, device=dev), 1)
+        with torch.no_grad():
+            for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+                head.dense_1.bias.fill_(-3.0)
+        reset_launches()
+        out = track_sequence_from_frames(
+            TrackingModule(net), images, clouds, boxes, det_mask, proj,
+            (32, 32), mcfg.point.point_len, compact_capacity=T * N,
+            crop_window=128)
+        ids.append(out["ids"].cpu())
+        launched = fused_affinity.launches
+        assert launched == (int(kernel_supported(mcfg))
+                            if dev != "cpu" else 0), (dev, launched)
+    assert torch.equal(ids[0], ids[1])
+
+
 def test_kernel_refuses_four_branches(gpu):
     net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
     params = build_affinity_params(net, torch.float32)
