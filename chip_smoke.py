@@ -218,7 +218,32 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    its ops, pool and mode), its FPS, auction rounds, a window timed by
    stage and that window's kernel inputs held against the plain
    version.  Its JSON line ``{"variants": ...}`` precedes the kernel
-   line, which ends with the runners' instances and N=128.
+   line, which ends with the runners' instances and N=128;
+14. the slice past N=128 and data parallelism: (a) the fused kernel at
+   N = 144, 192, 256 and 384 (launch 2's instance that streams its lines
+   from device memory) at B=10 and B=2 in float32 and bfloat16, with
+   every other pool and mode and the bias instance at N=192 B=2, against
+   its plain version (masked links exactly 0), timed as phase 3 with
+   the bound and ``torch.bmm``; B=16 N=32 and N=128 B=10 timed again;
+   (b) ``full_mmmot_noisy`` at ``max_dets`` 96 (a 2N = 192 revival
+   state) through the runner, S=2, the first 64 frames, heads calibrated
+   on the tree, its launches counted by N (the entry band at N=192),
+   and the tiny float32 noisy runner at ``max_dets`` 96 CPU against
+   GPU; (c) ``point_source="box3d"``: the tiny runner CPU against GPU
+   (files byte-equal) and ``full_mmmot`` through the runner (the boxes
+   holding points counted); (d) ``full_mmmot`` over the whole tree twice
+   with the packed cache: files equal to each other and to phase 6's,
+   each run's load and decode time; (e) the per-slot branch
+   (``compact_capacity=None``): tiny ids CPU == GPU, and the main
+   path's T=16 frames at full width, timed; (f) ``cli/track`` with no
+   tree: 2 synthetic sequences of 16 frames at full width; (g) the
+   port's data-parallel dry run (``parallel/dryrun.py``) with two ranks
+   sharing the card over gloo (NCCL refuses two ranks on one device),
+   tiny and at full width (``full_mmmot`` in float32, a B=4 step split
+   2 + 2), then NCCL at world size 1: gathered ids equal to one process's, the step
+   within loss rel 1e-4 and grad norm rel 1e-3.  Its JSON line
+   ``{"phase14": ...}`` precedes the kernel line, whose last entry is the
+   streaming instance (N > 128) with its launches in (b).
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -3744,6 +3769,416 @@ def variant_entries(kern, variants):
     return out
 
 
+# Phase 14: the slice past N=128 and the data-parallel path.  (a) the
+# fused kernel at N = 144, 192, 256, 384 (launch 2's instance that
+# streams its lines from device memory) at B=10 and B=2, float32 and
+# bfloat16, with every pool and mode and the bias instance at N=192 B=2;
+# B=16 N=32 and N=128 B=10 timed again beside them.
+WIDE_NS = (144, 192, 256, 384)
+WIDE_INSTANCES = (("pool mean", "mean", "dual", False),
+                  ("pool softmax", "softmax", "dual", False),
+                  ("mode single", "max", "single", False),
+                  ("mode none", "max", "none", False),
+                  ("link_bias", "max", "dual", True))
+
+
+def wide_inputs(dtype, gen, dev, B, n, D=512):
+    """B frame pairs at n slots, K=3: about 60 % of the previous and 70 %
+    of the current slots valid, in holes across all n; pair 0 has an
+    empty previous frame and pair 1 every slot valid on both sides, so
+    that lines of n entries and the last ballot word are used."""
+    a = torch.randn((B, 3, n, D), generator=gen, device=dev).to(dtype)
+    b = torch.randn((B, 3, n, D), generator=gen, device=dev).to(dtype)
+    mp = torch.rand((B, n), generator=gen, device=dev) < 0.6
+    mc = torch.rand((B, n), generator=gen, device=dev) < 0.7
+    mp[0] = False
+    if B > 1:
+        mp[1] = mc[1] = True
+    return a, b, mp.contiguous(), mc.contiguous()
+
+
+def check_wide_kernel(dev):
+    """(a): ``full_mmmot``'s kernel instance at each of ``WIDE_NS`` for
+    B=10 and B=2, float32 and bfloat16, then the other pools and modes
+    and the bias instance at N=192 B=2, each against its plain version
+    (every masked link exactly 0) and timed as phase 3; then B=16 N=32
+    and the N=128 B=10 instance again, to show they did not move."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    net = init_random_(TrackingNet(full_mmmot().model, device=dev), 0)
+    report = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = build_affinity_params(net, dtype)
+        for n in WIDE_NS:
+            for B in (ENTRY_B, 2):
+                report[n, dtype, B] = measure_kernel(
+                    *wide_inputs(dtype, gen, dev, B, n), params, dtype,
+                    f"N={n} B={B}")
+        for label, pool, mode, bias in WIDE_INSTANCES:
+            a, b, mp, mc = wide_inputs(dtype, gen, dev, 2, 192)
+            lb = (torch.randn((2, 192, 192), generator=gen, device=dev)
+                  if bias else None)
+            report[label, dtype] = measure_kernel(
+                a, b, mp, mc, params, dtype, f"N=192 B=2 {label}", bias=lb,
+                pool=pool, softmax_mode=mode)
+        report["B=16 N=32", dtype] = measure_kernel(
+            *affinity_inputs(dtype, gen, dev, T), params, dtype,
+            "again B=16 N=32")
+        report["N=128", dtype] = measure_kernel(
+            *entry_band_inputs(dtype, gen, dev, ENTRY_B, n=WIDE_N), params,
+            dtype, f"again N=128 B={ENTRY_B}")
+        del params
+    del net
+    torch.cuda.empty_cache()
+    return report
+
+
+WIDE_DETS = 96          # (b): max_dets 96, a 2N = 192 revival state
+
+
+def count_widths(fn):
+    """(fn's result, {N: launches}) with every launch of the fused kernel
+    on the GPU during ``fn()`` counted by its slot count N."""
+    import mmmot_tpu_torch.tracker.tracker as trk_mod
+
+    widths = {}
+
+    def recorded(a, *args, **kw):
+        if a.is_cuda:
+            widths[a.shape[2]] = widths.get(a.shape[2], 0) + 1
+        return fused_affinity(a, *args, **kw)
+
+    with patched(trk_mod, "fused_affinity", recorded):
+        return fn(), widths
+
+
+def wide_runner(root: str, dev, tmp: str, smi: str):
+    """(b): ``full_mmmot_noisy`` at ``max_dets`` 96 through the runner, S=2,
+    the first 64 frames of both sequences, at full width (seed-0
+    weights, heads calibrated on the tree): its bands at N=96 and its
+    entry band at N=192, the kernel's streaming instance; then a tiny
+    float32 noisy runner at max_dets 96, CPU against GPU."""
+    import dataclasses
+
+    agreement, tiny_widths = count_widths(lambda: quality_agreement(
+        root, dev, tmp, max_dets=WIDE_DETS))
+    cfg = full_mmmot_noisy()
+    data = dataclasses.replace(cfg.data, root=root, max_dets=WIDE_DETS)
+    net = init_random_(TrackingNet(cfg.model, device=dev), 0)
+    heads, _ = calibrate_heads(net, data, dev)
+    mod = TrackingModule(net, cfg.assoc)
+    fused_affinity.wide_launches = auction_lap.rounds = 0
+    stats, widths = count_widths(lambda: track_kitti_sequences(
+        mod, data, f"{tmp}/wide", window=RUNNER_WINDOW,
+        batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW, evaluate=False))
+    wide = fused_affinity.wide_launches
+    if widths.get(2 * WIDE_DETS, 0) == 0 or wide != widths[2 * WIDE_DETS]:
+        raise AssertionError(f"wide runner: launches by N {widths}, "
+                             f"{wide} of the streaming instance")
+    if stats["n_dropped"]:
+        raise AssertionError(f"wide runner: n_dropped {stats['n_dropped']}")
+    for seq, o in stats["outputs"].items():
+        check_quality_ids(o["ids"], o["det_mask"], QUALITY_K)
+    counts = quality_counts(stats["outputs"], QUALITY_K)
+    out = {"max_dets": WIDE_DETS, "frames": stats["frames_loaded"],
+           "window_ms": [1e3 * x for x in stats["window_s"]],
+           "load_s": stats["load_s"], "launches_by_n": widths,
+           "wide_launches": wide, "auction_rounds": auction_lap.rounds,
+           **counts, "heads": heads,
+           "tiny_agreement": dict(agreement, launches_by_n=tiny_widths)}
+    del net, mod
+    torch.cuda.empty_cache()
+    stage(f"(b) full_mmmot_noisy at max_dets {WIDE_DETS}: windows "
+          f"{out['window_ms']} ms, launches by N {widths} ({wide} streaming), "
+          f"{auction_lap.rounds} auction rounds, {counts}; tiny f32 at "
+          f"max_dets {WIDE_DETS} files equal CPU and GPU, launches by N "
+          f"{tiny_widths}, on {smi}")
+    return out
+
+
+def box3d_runner(root: str, dev, tmp: str, smi: str):
+    """(c): ``point_source="box3d"``: the tiny float32 runner CPU against
+    GPU (files byte-equal), then ``full_mmmot`` at full width through
+    the runner (S=2, the first 64 frames), with the detections whose 3D
+    box holds points of the scan counted."""
+    import dataclasses
+
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.ops.frustum import box3d_sample
+
+    tiny = dataclasses.replace(tiny_debug().data, root=root,
+                               point_source="box3d")
+    files = {}
+    for device in ("cpu", dev):
+        out = f"{tmp}/box3d_agree_{torch.device(device).type}"
+        stats = track_kitti_sequences(
+            TrackingModule(agreement_net(device)), tiny, out,
+            window=AGREE_WINDOW, batch_sequences=RUNNER_S,
+            max_frames=AGREE_FRAMES)
+        files[device] = result_files(out)
+    if files["cpu"] != files[dev] or len(files["cpu"]) < 4:
+        raise AssertionError("box3d tiny runner: files differ between the "
+                             "CPU and the GPU")
+    data = dataclasses.replace(full_mmmot().data, root=root,
+                               point_source="box3d")
+    net = init_random_(TrackingNet(full_mmmot().model, device=dev), 0)
+    fused_affinity.launches = 0
+    stats = track_kitti_sequences(
+        TrackingModule(net), data, f"{tmp}/box3d", window=RUNNER_WINDOW,
+        batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW)
+    if stats["n_dropped"] or fused_affinity.launches != stats["n_windows"]:
+        raise AssertionError(f"box3d runner: {stats['n_dropped']} dropped, "
+                             f"{fused_affinity.launches} launches")
+    for seq, o in stats["outputs"].items():
+        check_ids(torch.as_tensor(o["ids"]), torch.as_tensor(o["det_mask"]))
+    a = KittiTrackingDataset(data, max_cloud_points=32768).load_sequence(
+        "0000", max_frames=RUNNER_WINDOW)
+    _, m = box3d_sample(*(torch.as_tensor(x, device=dev) for x in (
+        a.clouds, a.boxes3d)), data.point_len,
+        torch.as_tensor(a.velo_to_rect, device=dev),
+        torch.as_tensor(a.det_mask, device=dev),
+        torch.as_tensor(a.cloud_valid, device=dev))
+    with_pts = int(m.any(-1).sum())
+    n_det = int(a.det_mask.sum())
+    if with_pts < n_det // 2:
+        raise AssertionError(f"box3d: {with_pts} of {n_det} boxes hold "
+                             "points of the scan")
+    out = {"tiny_files_equal": sorted(files["cpu"]),
+           "window_ms": [1e3 * x for x in stats["window_s"]],
+           "launches": fused_affinity.launches,
+           "mota_random_weights": stats["metrics"].mota,
+           "detections_with_points": [with_pts, n_det]}
+    del net
+    torch.cuda.empty_cache()
+    stage(f"(c) box3d: tiny runner files equal CPU and GPU; full_mmmot "
+          f"windows {out['window_ms']} ms, {out['launches']} launches, "
+          f"{with_pts} of {n_det} boxes of 0000 hold points, on {smi}")
+    return out
+
+
+def packed_runner(root: str, dev, tmp: str, smi: str):
+    """(d): ``full_mmmot`` over the whole tree twice with the packed cache
+    (the first run packs each sequence, the second memory-maps it): files
+    equal to each other and to phase 6's run of the same seed-0 weights
+    without the cache (the same groups, windows and capacity); each
+    run's load and decode time."""
+    import dataclasses
+    import os
+
+    data = dataclasses.replace(full_mmmot().data, root=root,
+                               packed_cache=True)
+    net = init_random_(TrackingNet(full_mmmot().model, device=dev), 0)
+    runs = []
+    for k in range(2):
+        stats = track_kitti_sequences(TrackingModule(net), data,
+                                      f"{tmp}/packed{k}",
+                                      window=RUNNER_WINDOW,
+                                      batch_sequences=RUNNER_S)
+        runs.append({"load_s": stats["load_s"],
+                     "decode_s": stats["decode_s"],
+                     "files": result_files(f"{tmp}/packed{k}")})
+    if runs[0]["files"] != runs[1]["files"]:
+        raise AssertionError("packed cache: the memory-mapped run's files "
+                             "differ from the packing run's")
+    if runs[1]["decode_s"] != 0.0:
+        raise AssertionError("packed cache: the second run decoded PNGs")
+    plain = result_files(f"{tmp}/full") if os.path.isdir(f"{tmp}/full") \
+        else None
+    if plain is not None and plain != runs[0]["files"]:
+        raise AssertionError("packed cache: files differ from phase 6's "
+                             "run without the cache")
+    out = {"load_s": [r["load_s"] for r in runs],
+           "decode_s": [r["decode_s"] for r in runs],
+           "files": sorted(runs[0]["files"]),
+           "equal_to_uncached_run": plain is not None}
+    del net
+    torch.cuda.empty_cache()
+    stage(f"(d) packed cache: load {out['load_s']} s (PNG decode "
+          f"{out['decode_s']} s), files equal across the runs"
+          + (" and to phase 6's" if plain is not None else "")
+          + f", on {smi}")
+    return out
+
+
+def per_slot_phase(dev, smi: str):
+    """(e): the per-slot branch (``compact_capacity=None``): the tiny
+    float32 ids CPU against GPU, then the main path's T=16 frames
+    (phase 5's inputs) at full width, timed warm."""
+    cfg = tiny_debug()
+    gen = torch.Generator().manual_seed(5)
+    frames = synthetic_frames(gen, "cpu", 6, 96, 320, 512, 8, 2, 9)
+    ids = {}
+    for device in ("cpu", dev):
+        out = track_sequence_from_frames(
+            TrackingModule(agreement_net(device)),
+            *(x.to(device) for x in frames), (32, 32),
+            cfg.model.point.point_len)
+        ids[device] = out["ids"].cpu()
+        check_ids(out["ids"], frames[3].to(device))
+    if not torch.equal(ids["cpu"], ids[dev]):
+        raise AssertionError("per-slot tiny ids differ between CPU and GPU")
+    full = full_mmmot()
+    net = init_random_(TrackingNet(full.model, device=dev), 0)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    images, clouds, boxes, det_mask, proj = synthetic_frames(
+        gen, dev, T, H_IMG, W_IMG, M_PTS, N, 6, 19)
+    mod = TrackingModule(net)
+
+    def run():
+        return track_sequence_from_frames(
+            mod, images, clouds, boxes, det_mask, proj,
+            full.model.appearance.crop_size, full.model.point.point_len)
+
+    run()
+    fused_affinity.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    check_ids(out["ids"], det_mask)
+    ms = 1e3 * (time.perf_counter() - t0)
+    if fused_affinity.launches != 1 or int(out["n_dropped"]) != 0:
+        raise AssertionError(f"per slot: {fused_affinity.launches} launches, "
+                             f"{int(out['n_dropped'])} dropped")
+    res = {"tiny_ids_equal": True, "frames": T, "slots": T * N,
+           "detections": int(det_mask.sum()), "warm_ms": ms,
+           "fps": T / ms * 1e3}
+    del net, mod
+    torch.cuda.empty_cache()
+    stage(f"(e) per-slot branch: tiny ids equal CPU and GPU; full width "
+          f"T={T}: {T * N} slots extracted, {ms:.1f} ms warm "
+          f"({res['fps']:.1f} FPS), on {smi}")
+    return res
+
+
+def synthetic_cli(tmp: str, smi: str):
+    """(f): ``cli/track`` with no tree: 2 synthetic sequences of 16 frames
+    at full width on the GPU, files written and scored."""
+    from mmmot_tpu_torch.cli.track import main as track_main
+
+    fused_affinity.launches = 0
+    stats = track_main(["--config", "full_mmmot", "--data-root",
+                        f"{tmp}/no_tree", "--sequences", "2", "--frames",
+                        "16", "--result-path", f"{tmp}/synthetic"])
+    if stats["n_sequences"] != 2 or fused_affinity.launches != 2:
+        raise AssertionError(f"synthetic cli: {stats['n_sequences']} "
+                             f"sequences, {fused_affinity.launches} launches")
+    out = {"sequences": 2, "frames": 16, "fps": stats["fps"],
+           "launches": fused_affinity.launches,
+           "mota_random_weights": stats["metrics"].mota,
+           "files": [f.rsplit("/", 1)[-1] for f in stats["files"]]}
+    stage(f"(f) synthetic cli/track: {out}, on {smi}")
+    return out
+
+
+def parallel_phase(smi: str):
+    """(g): the port's data-parallel dry run (``parallel/dryrun.py``) with
+    two ranks sharing the card over gloo (NCCL refuses two ranks on one
+    device), tiny and at full width, then NCCL at world size 1; each
+    raises unless the gathered ids equal one process's, the step is
+    within the reference's tolerances and its parameters moved, their
+    change as close to one process's as ``dryrun.check`` asks (relative
+    norm: 1e-3, or twice one process's with the batch in another order).  The full-width run is
+    ``full_mmmot`` in float32 (TF32 off), a B=4 step split 2 + 2, each
+    step extracting its own valid rows: in bfloat16 the two orders of
+    the BatchNorm sums and cuDNN's kernels for 2 pairs or 4 round
+    activations apart, which moved the loss by 7.5e-4 relative (dev run
+    of this phase), past 1e-4, with nothing but rounding between them."""
+    import dataclasses
+
+    from mmmot_tpu_torch.parallel.dryrun import dryrun
+
+    stage("(g) NCCL refuses two ranks on one device: two ranks share the "
+          "card over gloo (broadcast and all-reduce on CUDA tensors; the "
+          "all-gather of ids and parameters staged through the host)")
+    full = full_mmmot()
+    full_f32 = dataclasses.replace(full, model=dataclasses.replace(
+        full.model, compute_dtype="float32"))
+    out = {}
+    for label, n, backend, cfg, cap in (
+            ("gloo2_tiny", 2, "gloo", tiny_debug(), 0),
+            ("gloo2_full_f32", 2, "gloo", full_f32, -1),
+            ("nccl1_tiny", 1, "nccl", tiny_debug(), 0)):
+        t0 = time.perf_counter()
+        found = dryrun(n, backend, "cuda:0", cfg, B=4 if n == 2 else 2,
+                       compact_capacity=cap)
+        r = {"seconds": time.perf_counter() - t0,
+             "train": found["train"], "norm": found["norm"],
+             "tracking_ms": {leg: [v["ms"], v["ms_single"]]
+                             for leg, v in found["tracking"].items()},
+             "ids_equal": True}
+        out[label] = r
+        stage(f"(g) {label}: ids equal to one process on every leg, SGD "
+              f"step's parameters {r['train']['param_max_diff']:.3g} from "
+              f"one process's (largest move "
+              f"{r['train']['param_moved']:.3g}; the change "
+              f"{r['train']['param_err']:.3g} apart, relative norm, one "
+              f"process in another order "
+              f"{r['train']['param_floor']:.3g}), loss "
+              f"{r['train']['loss']:.6f} vs {r['train']['loss_single']:.6f},"
+              f" grad norm {r['train']['grad_norm']:.5f} vs "
+              f"{r['train']['grad_norm_single']:.5f}, step "
+              f"{r['train']['ms']:.1f} vs {r['train']['ms_single']:.1f} ms, "
+              f"tracking ms (sharded, one process) {r['tracking_ms']}, "
+              f"{r['seconds']:.1f} s, on {smi}")
+    return out
+
+
+def phase14(dev, smi: str, root: str, tmp: str):
+    """Phase 14: (a) the kernel past N=128; (b)-(f) the raw path's
+    options; (g) data parallelism.  Returns (the kernel report of (a),
+    the ``{"phase14": ...}`` result)."""
+    t0 = time.perf_counter()
+    kern = check_wide_kernel(dev)
+    stage(f"(a) the kernel at N = {WIDE_NS} against its plain version, on "
+          f"{smi}")
+    res = {"wide_runner": wide_runner(root, dev, tmp, smi),
+           "box3d": box3d_runner(root, dev, tmp, smi),
+           "packed_cache": packed_runner(root, dev, tmp, smi),
+           "per_slot": per_slot_phase(dev, smi),
+           "synthetic_cli": synthetic_cli(tmp, smi),
+           "parallel": parallel_phase(smi), "gpu": smi}
+    res["seconds"] = time.perf_counter() - t0
+    stage(f"phase 14: {res['seconds']:.1f} s on {smi}")
+    return kern, res
+
+
+def wide_entry(kern, launches: int):
+    """The kernel line's entry of the streaming instance (N > 128): the
+    entry band's shape at max_dets 96 (B=10, N=192) in bfloat16, with
+    B=2, N=144, 256 and 384, float32, the other pools and modes and the bias
+    instance beside, and B=16 N=32 and N=128 B=10 timed again."""
+    keys = ("ms", "call_ms", "launch_ms", "plain_ms", "plain_call_ms",
+            "library_ms", "library_call_ms", "bound_ms", "bound_by",
+            "valid_pairs", "errs", "frame_pairs", "slots")
+
+    def at(*key):
+        return {k: kern[key][k] for k in keys}
+
+    r = kern[192, torch.bfloat16, ENTRY_B]
+    return {
+        "name": "fused_affinity[N>128]", "route": "cuda",
+        "source": "mmmot_tpu_torch/csrc/affinity.cu",
+        "replaces": "mmmot_tpu/kernels/affinity_kernel.py:206",
+        "instance": "N above 128 (affinity_kernel.py:229-235): "
+                    "finish_kernel<T, bias, 16> streams its lines from "
+                    "the link in device memory",
+        "launches": launches,
+        "max_abs_err": max(r["errs"][k] for k in ("link", "link_norm",
+                                                  "new", "end")),
+        **{k: r[k] for k in keys},
+        "library_call": "torch.bmm [K, B*N*N, D] x [K, D, H] (the W1 "
+                        "product alone, over all pairs)",
+        "dtype": "bfloat16",
+        "shapes": {f"{str(dt)[6:]}_n{n}_b{B}": at(n, dt, B)
+                   for n in WIDE_NS for B in (ENTRY_B, 2)
+                   for dt in (torch.bfloat16, torch.float32)},
+        "instances_n192_b2": {f"{label}_{str(dt)[6:]}": at(label, dt)
+                              for label, *_ in WIDE_INSTANCES
+                              for dt in (torch.bfloat16, torch.float32)},
+        "again": {f"{label}_{str(dt)[6:]}": at(label, dt)
+                  for label in ("B=16 N=32", "N=128")
+                  for dt in (torch.bfloat16, torch.float32)}}
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -3809,6 +4244,8 @@ def main(argv=None) -> int:
         kern_inst, solvers = solvers_phase(dev, smi, root, tmp)
         torch.cuda.empty_cache()
         kern_var, variants = variants_phase(dev, smi, root, tmp)
+        torch.cuda.empty_cache()
+        kern_wide, wide = phase14(dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -3978,9 +4415,12 @@ def main(argv=None) -> int:
                                if k not in ("kernel", "runner_chunk")}}))
     print(json.dumps({"solvers": solvers}))
     print(json.dumps({"variants": variants}))
+    print(json.dumps({"phase14": wide}))
     print(json.dumps({"kernels": [entry, entry_bias] + serving_entries
                       + [entry_int8] + instance_entries(kern_inst, solvers)
-                      + variant_entries(kern_var, variants)}))
+                      + variant_entries(kern_var, variants)
+                      + [wide_entry(kern_wide, wide["wide_runner"][
+                          "wide_launches"])]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -87,11 +87,23 @@
 // Launch 2 (finish_kernel), grid (B): per frame pair, link = cast(sum_k
 // part [/ K] [+ bias]) at valid pairs and an exact 0 elsewhere (every element
 // written once, `link` is not zeroed by the wrapper), the row and column
-// softmaxes and pools over it in dynamic shared memory (2 N (N + 1)
-// floats: 132 KB at N = 128), then the heads' epilogues from hs:
+// softmaxes and pools over it, then the heads' epilogues from hs:
 // rnd(s + pooled * wp + b1) in f32, ReLU and the f32 dot with w2 (a warp
 // per detection, lanes over the hh hidden units), 0 for masked
-// detections.  N is at most 128: four ballot words per mask.
+// detections.  Up to N = 128 the lines sit in dynamic shared memory
+// (2 N (N + 1) floats: 132 KB at N = 128).  Above, those would pass
+// the 227 KB of a block past N of about 168, and an instance streams the
+// rows and columns from the link it has just written to device memory
+// (it stays in L1/L2: 128 KB a pair at N = 256 in bf16), writing the
+// row softmax into `norm` and folding the column softmax into it.  Of the
+// two designs that fit, this one keeps one block a frame pair and the very
+// arithmetic of the N <= 128 instance, with no extra scratch; splitting
+// the rows over a thread-block cluster would share column maxima and
+// sums through distributed shared memory with a cluster barrier per
+// pass, for a launch that is a small part of the call at these widths.
+// N is at most 512 (kMaxN): the mask lists and ballot words are sized
+// by a template argument of each launch's instance, 128 slots up to
+// N = 128 and 512 above.
 //
 // What this design does about the faults of the first (SIMT) kernel:
 // no tensor cores -> mma.sync in bf16; every pair computed -> a work
@@ -111,8 +123,8 @@ namespace {
 constexpr float kNegInf = -1e9f;  // ops/masking.py NEG_INF (finite)
 constexpr int kThreads = 256;
 constexpr int kRows = 64;         // pairs (launch 1) or detections per tile
-constexpr int kMaxN = 128;        // four ballot words per mask
-constexpr int kWords = kMaxN / 32;
+constexpr int kMaxN = 512;        // slots a frame (check_widths names it)
+constexpr int kSmemN = 128;       // launch 2 holds its lines on chip up to here
 constexpr int kWindow = 32;       // the reference's ordered-sum window
 constexpr int kKT = 64;           // features per W stage
 constexpr int kStages = 2;        // W stages in flight (double buffer)
@@ -565,18 +577,19 @@ __device__ void row_gemm(const T* w, int D, int S, int Nc,
   if (tid < kRows) done(tid, rowsum);
 }
 
-// Warps 0 and 1 compact mask 0 and mask 1 (N <= 128 bytes each) into
+// Warps 0 and 1 compact mask 0 and mask 1 (N <= kCap bytes each) into
 // lists of valid slots (ascending) and their counts: a ballot word per
-// 32 slots.
+// 32 slots, kCap / 32 words.
+template <int kCap>
 __device__ void compact_masks(const uint8_t* m0, const uint8_t* m1, int N,
-                              int (*list_s)[kMaxN], int* count_s) {
+                              int (*list_s)[kCap], int* count_s) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp > 1) return;
   const uint8_t* m = warp == 0 ? m0 : m1;
   const unsigned below = (1u << lane) - 1u;
   int before = 0;
 #pragma unroll
-  for (int w = 0; w < kWords; ++w) {
+  for (int w = 0; w < kCap / 32; ++w) {
     const int n = lane + 32 * w;
     const unsigned bits = __ballot_sync(0xffffffffu, n < N && m[n] != 0);
     if (bits >> lane & 1u) list_s[warp][before + __popc(bits & below)] = n;
@@ -627,7 +640,7 @@ norms_kernel(const T* __restrict__ a, const T* __restrict__ b,
   }
 }
 
-template <typename T, bool kSegs>
+template <typename T, bool kSegs, int kCap>
 __global__ void __launch_bounds__(kThreads, 2)
 products_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 const uint8_t* __restrict__ mp, const uint8_t* __restrict__ mc,
@@ -643,7 +656,7 @@ products_kernel(const T* __restrict__ a, const T* __restrict__ b,
                 int H, int HH, int n_ops, int ops) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ float part_s[kRows][kPartLd];
-  __shared__ int list_s[2][kMaxN];
+  __shared__ int list_s[2][kCap];
   __shared__ int count_s[2];
   __shared__ int ri_s[kRows], rj_s[kRows];
 
@@ -755,7 +768,21 @@ products_kernel(const T* __restrict__ a, const T* __restrict__ b,
 // over f32 terms.  mode (Mode): link_norm = rnd(0.5 rnd(row + col)) of
 // the two softmaxes (kDual), the row softmax (kSingle), or the link
 // itself (kNone).
-template <typename T, bool kBias>
+//
+// kU: entries of a line per lane (a line has at most 32 kU entries).
+// kU = kSmemN / 32 is the instance for N <= kSmemN: link_s and row_s in
+// dynamic shared memory, two lines a warp at a time.  Above kSmemN (kU =
+// kMaxN / 32, one instance for every N up to kMaxN) the two N x (N + 1)
+// float planes would pass the 227 KB a block may hold (N > 168), so this instance
+// keeps no plane on chip: the lines read the link back from `link`
+// itself (its compute-dtype value, which is what link_s holds, widened;
+// a frame pair's link is 128 KB at N = 256 in bf16 and stays in L1/L2),
+// the row pass writes the row softmax straight into `norm` (a value
+// already rounded to T, so the store is exact) and the column pass
+// combines it there with the column softmax.  One line a warp at a time
+// keeps the lane's 3 kU line registers in bounds.  The arithmetic, and
+// so every rounding point, is the shared-memory instance's.
+template <typename T, bool kBias, int kU>
 __global__ void __launch_bounds__(kThreads)
 finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
               const uint8_t* __restrict__ mp, const uint8_t* __restrict__ mc,
@@ -767,19 +794,24 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
               T* __restrict__ new_out, T* __restrict__ end_out,
               const float* __restrict__ bias, int K, int N, int HH,
               int avg, int pool, int mode) {
+  constexpr int kCap = 32 * kU;          // slots this instance takes
+  constexpr bool kSmem = kCap <= kSmemN;  // lines in shared memory
+  constexpr int kQ = kSmem ? 2 : 1;       // lines a warp at a time
   extern __shared__ __align__(16) float lines_s[];
   const int ld = N + 1;              // conflict-free rows and columns
   float* link_s = lines_s;           // the link, then its column softmax
   float* row_s = lines_s + N * ld;   // its row softmax
-  __shared__ float best_s[2][kMaxN];  // column (new) and row (end) pools
-  __shared__ int list_s[2][kMaxN];
+  __shared__ float best_s[2][kCap];  // column (new) and row (end) pools
+  __shared__ int list_s[2][kCap];
   __shared__ int count_s[2];
 
   const int pb = blockIdx.x, tid = threadIdx.x, NN = N * N;
   const int warp = tid / 32, lane = tid % 32, n_warps = kThreads / 32;
   const float neg = rnd<T>(kNegInf);
   const float tiny = rnd<T>(1e-30f);
-  __shared__ bool mpb[kMaxN], mcb[kMaxN];
+  T* const link_b = link + (long)pb * NN;  // this pair's link and norm
+  T* const norm_b = norm + (long)pb * NN;
+  __shared__ bool mpb[kCap], mcb[kCap];
   compact_masks(mc + pb * N, mp + pb * N, N, list_s, count_s);  // curr, prev
   for (int n = tid; n < N; n += kThreads) {
     mpb[n] = mp[pb * N + n] != 0;
@@ -818,23 +850,29 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
       const int e = e0 + tid + u * kThreads, i = e / N, j = e % N;
       if (e >= NN) break;
       const T lv = from_f<T>(mpb[i] && mcb[j] ? v[u] : 0.f);
-      link[(long)pb * NN + e] = lv;
-      if (mode == kNone) norm[(long)pb * NN + e] = lv;
-      link_s[i * ld + j] = to_f(lv);
+      link_b[e] = lv;
+      if (mode == kNone) norm_b[e] = lv;
+      if constexpr (kSmem) link_s[i * ld + j] = to_f(lv);
     }
   }
-  __syncthreads();
+  __syncthreads();  // the link, in link_s or in `link`, is complete
+  // Entry (i, j) of the link as the lines read it.
+  auto link_at = [&](int i, int j) {
+    if constexpr (kSmem) return link_s[i * ld + j];
+    else return to_f(link_b[(long)i * N + j]);
+  };
 
-  // Masked softmax of lines l and l + 8 (rows if by_row, else columns;
-  // a line >= N is skipped) of the link matrix into out_s, and their
-  // pools over the valid entries into best.  Lanes take entries lane +
-  // 32 u; the two lines' shuffle chains interleave.
+  // Masked softmax of lines l + 8 q, q < kQ (rows if by_row, else
+  // columns; a line >= N is skipped) of the link matrix, and their pools
+  // over the valid entries into best.  The softmax goes to out_s (the
+  // shared-memory instance), or into `norm` (the other: rows as the row
+  // softmax, columns combined with it by the mode).  Lanes take entries
+  // lane + 32 u; the lines' shuffle chains interleave.
   auto lines = [&](int l, bool by_row, float* out_s, float* best) {
-    constexpr int kU = kMaxN / 32;
-    float lg[2][kU], pm[2][kU], ex[2][kU], mx[2], top[2], den[2], sum[2],
-        cnt[2], wsum[2];
+    float lg[kQ][kU], pm[kQ][kU], ex[kQ][kU], mx[kQ], top[kQ], den[kQ],
+        sum[kQ], cnt[kQ], wsum[kQ];
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < kQ; ++q) {
       const int lq = l + 8 * q;
       const bool own = lq < N && (by_row ? mpb[lq] : mcb[lq]);
       mx[q] = top[q] = -INFINITY;
@@ -845,8 +883,7 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
         const bool in = x < N;
         const bool ok = in && own && (by_row ? mcb[x] : mpb[x]);
         pm[q][u] = ok ? 1.f : 0.f;
-        lg[q][u] = ok ? (by_row ? link_s[lq * ld + x] : link_s[x * ld + lq])
-                      : neg;
+        lg[q][u] = ok ? (by_row ? link_at(lq, x) : link_at(x, lq)) : neg;
         if (in) mx[q] = fmaxf(mx[q], lg[q][u]);
         if (ok) {
           top[q] = fmaxf(top[q], lg[q][u]);
@@ -858,12 +895,12 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
+      for (int q = 0; q < kQ; ++q) {
         mx[q] = fmaxf(mx[q], __shfl_xor_sync(0xffffffffu, mx[q], off));
         top[q] = fmaxf(top[q], __shfl_xor_sync(0xffffffffu, top[q], off));
       }
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < kQ; ++q) {
       den[q] = 0.f;
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
@@ -874,10 +911,10 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
 #pragma unroll
     for (int off = 16; off > 0; off /= 2)
 #pragma unroll
-      for (int q = 0; q < 2; ++q)
+      for (int q = 0; q < kQ; ++q)
         den[q] += __shfl_xor_sync(0xffffffffu, den[q], off);
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < kQ; ++q) {
       const float dq = fmaxf(rnd<T>(den[q]), tiny);
       wsum[q] = 0.f;
 #pragma unroll
@@ -890,20 +927,28 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
 #pragma unroll
       for (int off = 16; off > 0; off /= 2)
 #pragma unroll
-        for (int q = 0; q < 2; ++q) {
+        for (int q = 0; q < kQ; ++q) {
           sum[q] += __shfl_xor_sync(0xffffffffu, sum[q], off);
           cnt[q] += __shfl_xor_sync(0xffffffffu, cnt[q], off);
           wsum[q] += __shfl_xor_sync(0xffffffffu, wsum[q], off);
         }
     }
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
+    for (int q = 0; q < kQ; ++q) {
       const int lq = l + 8 * q;
       if (lq >= N) continue;
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
         const int x = lane + 32 * u;
-        if (x < N) out_s[by_row ? lq * ld + x : x * ld + lq] = ex[q][u];
+        if (x >= N) continue;
+        if constexpr (kSmem) {
+          out_s[by_row ? lq * ld + x : x * ld + lq] = ex[q][u];
+        } else if (by_row) {
+          if (mode != kNone) norm_b[(long)lq * N + x] = from_f<T>(ex[q][u]);
+        } else if (mode == kDual) {  // the row softmax, stored above
+          T* o = norm_b + (long)x * N + lq;
+          *o = from_f<T>(rnd<T>(0.5f * rnd<T>(to_f(*o) + ex[q][u])));
+        }
       }
       if (lane == 0)
         best[lq] = pool == kPoolMean ? rnd<T>(rnd<T>(sum[q]) /
@@ -914,11 +959,11 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
     }
   };
   static_assert(kThreads / 32 == 8, "lines pairs l with l + 8");
-  for (int i = warp; i < N; i += 16) lines(i, true, row_s, best_s[1]);
-  __syncthreads();  // rows read; the columns overwrite link_s below
-  for (int j = warp; j < N; j += 16) lines(j, false, link_s, best_s[0]);
+  for (int i = warp; i < N; i += 8 * kQ) lines(i, true, row_s, best_s[1]);
+  __syncthreads();  // rows read and stored; the columns overwrite below
+  for (int j = warp; j < N; j += 8 * kQ) lines(j, false, link_s, best_s[0]);
   __syncthreads();
-  if (mode != kNone)
+  if (kSmem && mode != kNone)
     for (int e = tid; e < NN; e += kThreads) {
       const int x = (e / N) * ld + e % N;
       norm[(long)pb * NN + e] = mode == kSingle
@@ -956,7 +1001,32 @@ finish_kernel(const float* __restrict__ part, const float* __restrict__ hs,
   }
 }
 
-size_t finish_smem_bytes(int N) { return (size_t)2 * N * (N + 1) * 4; }
+// Launch 2's dynamic shared memory: the two line planes up to kSmemN,
+// none above.
+size_t finish_smem_bytes(int N) {
+  return N <= kSmemN ? (size_t)2 * N * (N + 1) * 4 : 0;
+}
+
+// Launch 2's instance for N slots and `bias`: the entries a lane holds
+// of a line (kU) by N, the bias instance or not.
+template <typename T, int kU>
+auto finish_for(bool bias) {
+  return bias ? finish_kernel<T, true, kU> : finish_kernel<T, false, kU>;
+}
+template <typename T>
+auto finish_instance(int N, bool bias) {
+  return N <= kSmemN ? finish_for<T, kSmemN / 32>(bias)
+                     : finish_for<T, kMaxN / 32>(bias);
+}
+
+// Launch 1's instance: the op segments' with several ops, and mask lists
+// of kCap slots (kSmemN: the instance of N <= 128 as it was before N
+// could pass 128; kMaxN above).
+template <typename T, int kCap>
+auto products_for(int n_ops) {
+  return n_ops > 1 ? products_kernel<T, true, kCap>
+                   : products_kernel<T, false, kCap>;
+}
 
 template <typename T>
 int launch_products(const void* a, const void* b, const void* mp,
@@ -974,9 +1044,8 @@ int launch_products(const void* a, const void* b, const void* mp,
   }
   // Opt in to the dynamic shared memory on the current device (the
   // attribute is per device; setting it is a cheap host call).
-  // Several ops: the instance that runs the op segments.
-  auto kernel =
-      n_ops > 1 ? products_kernel<T, true> : products_kernel<T, false>;
+  auto kernel = N <= kSmemN ? products_for<T, kSmemN>(n_ops)
+                            : products_for<T, kMaxN>(n_ops);
   const size_t bytes = gemm_smem_bytes<T>(D);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1000,7 +1069,7 @@ int launch_finish(const void* part, const void* hs, const void* mp,
                   void* link, void* norm, void* new_out, void* end_out,
                   const void* bias, int B, int K, int N, int HH, int avg,
                   int pool, int mode, cudaStream_t stream) {
-  auto kernel = bias ? finish_kernel<T, true> : finish_kernel<T, false>;
+  auto kernel = finish_instance<T>(N, bias != nullptr);
   const size_t bytes = finish_smem_bytes(N);
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1018,8 +1087,10 @@ int launch_finish(const void* part, const void* hs, const void* mp,
 
 extern "C" {
 
-// The most slots per frame the kernels take (four ballot words per mask).
+// The most slots per frame the kernels take, and the most for which
+// launch 2 holds its lines in shared memory.
 int mmmot_affinity_max_n() { return kMaxN; }
+int mmmot_affinity_smem_n() { return kSmemN; }
 
 // Launch 1 (after launch 0 with cosine): the dense products.
 // part [B, K, N, N] gets each branch's score + b2 at the valid pairs,

@@ -21,8 +21,13 @@ present, which is also how parity fixtures are produced.
 
 The port's copy of ``mmmot_tpu/data/kitti_dataset.py``: PNG frames are
 decoded by ``data/png.py`` (numpy and zlib) in place of PIL, all frames of
-a sequence in one batch, and the packed cache is not ported.  The arrays
-must equal the reference's field by field.
+a sequence in one batch.  The arrays must equal the reference's field by
+field.  With ``data.packed_cache`` two caches of the reference's layout
+sit under ``<root>/.packed/``: every decoded frame as
+``frames/<seq>/<png>-<size>-<mtime_ns>.npy`` (training pairs read
+random offsets, which the sequence cache never serves), and whole
+sequences (``data/packed_cache.py``); a tree cached by either package
+reads the same in the other.
 """
 
 from __future__ import annotations
@@ -99,10 +104,6 @@ class KittiTrackingDataset:
         if not os.path.isdir(img_root):
             raise FileNotFoundError(f"no KITTI tracking tree at {self.root}")
         self.sequences = sorted(os.listdir(img_root))
-        if cfg.packed_cache:
-            raise NotImplementedError(
-                "data.packed_cache is not ported: the port decodes every "
-                "frame (data/png.py)")
         self.decode_s = 0.0          # seconds spent decoding PNG frames
 
     # ------------------------------------------------------------------
@@ -110,17 +111,41 @@ class KittiTrackingDataset:
         d = os.path.join(self.root, "image_02", seq)
         return sorted(f for f in os.listdir(d) if f.endswith(".png"))
 
+    def _frame_cache_path(self, seq: str, fname: str) -> str:
+        """The frame cache's file of ``fname``, keyed by the PNG's size and
+        mtime (a stale entry is never hit again)."""
+        st = os.stat(os.path.join(self.root, "image_02", seq, fname))
+        return os.path.join(self.root, ".packed", "frames", seq,
+                            f"{fname}-{st.st_size}-{st.st_mtime_ns}.npy")
+
     def _load_images(self, seq: str, fnames: List[str]) -> np.ndarray:
         """Decode frames and pad each to IMG_H x IMG_W: [T, H, W, 3]
-        uint8.  The decode time adds to ``self.decode_s``."""
-        t0 = time.perf_counter()
-        imgs = read_pngs([os.path.join(self.root, "image_02", seq, f)
-                          for f in fnames])
-        self.decode_s += time.perf_counter() - t0
+        uint8.  The decode time adds to ``self.decode_s``.  With the
+        packed cache a frame decoded before is read from its ``.npy``,
+        and a frame decoded now is written there."""
         out = np.zeros((len(fnames), IMG_H, IMG_W, 3), np.uint8)
-        for t, img in enumerate(imgs):
+        cpaths = ([self._frame_cache_path(seq, f) for f in fnames]
+                  if self.cfg.packed_cache else [None] * len(fnames))
+        todo = []
+        for t, cpath in enumerate(cpaths):
+            if cpath is not None and os.path.exists(cpath):
+                out[t] = np.load(cpath, mmap_mode="r")
+            else:
+                todo.append(t)
+        if not todo:
+            return out
+        t0 = time.perf_counter()
+        imgs = read_pngs([os.path.join(self.root, "image_02", seq,
+                                       fnames[t]) for t in todo])
+        self.decode_s += time.perf_counter() - t0
+        for t, img in zip(todo, imgs):
             h, w = min(img.shape[0], IMG_H), min(img.shape[1], IMG_W)
             out[t, :h, :w] = img[:h, :w]
+            if cpaths[t] is not None:
+                os.makedirs(os.path.dirname(cpaths[t]), exist_ok=True)
+                tmp = f"{cpaths[t]}.tmp-{os.getpid()}.npy"
+                np.save(tmp, out[t])
+                os.replace(tmp, cpaths[t])
         return out
 
     def _load_image(self, seq: str, fname: str) -> np.ndarray:
@@ -175,6 +200,16 @@ class KittiTrackingDataset:
     def load_sequence(self, seq: str, start: int = 0,
                       max_frames: Optional[int] = None) -> SequenceArrays:
         cfg = self.cfg
+        # Whole-sequence loads with the packed cache memory-map the
+        # arrays of an earlier load (data/packed_cache.py).
+        use_cache = cfg.packed_cache and start == 0 and max_frames is None
+        if use_cache:
+            from mmmot_tpu_torch.data import packed_cache
+
+            n_frames = len(self._frames(seq))
+            cached = packed_cache.load(self, seq, n_frames)
+            if cached is not None:
+                return cached
         N = cfg.max_dets
         frames = self._frames(seq)[start:]
         if max_frames is not None:
@@ -269,7 +304,7 @@ class KittiTrackingDataset:
             clouds[t, :len(pc)] = pc
             cloud_valid[t, :len(pc)] = True
 
-        return SequenceArrays(images=images, clouds=clouds,
+        arrs = SequenceArrays(images=images, clouds=clouds,
                               cloud_valid=cloud_valid, boxes=boxes,
                               det_mask=det_mask, scores=scores,
                               gt_ids=gt_ids,
@@ -279,6 +314,9 @@ class KittiTrackingDataset:
                               velo_to_rect=calib.velo_to_rect_matrix()
                               .astype(np.float32),
                               cls_ids=cls_ids)
+        if use_cache:
+            packed_cache.save(self, seq, n_frames, arrs)
+        return arrs
 
     def training_pairs(self, seq: str, rng: np.random.Generator,
                        num_pairs: int):

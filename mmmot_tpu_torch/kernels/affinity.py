@@ -40,7 +40,8 @@ from mmmot_tpu_torch.models.new_end import pool_link
 from mmmot_tpu_torch.models.tracking_net import AffinityOutput
 from mmmot_tpu_torch.ops.masking import pair_mask
 
-MAX_N = 128     # csrc/affinity.cu kMaxN; _library checks that they agree
+MAX_N = 512     # csrc/affinity.cu kMaxN; _library checks that they agree
+SMEM_N = 128    # kSmemN: launch 2's lines in shared memory up to here
 MAX_K = 3       # score branches: fused, image, lidar
 # csrc/affinity.cu's enums Op, Pool and Mode.
 OP_CODES = {"subabs": 0, "mul": 1, "diff": 2, "cosine": 3}
@@ -179,11 +180,12 @@ def affinity_plain(a, b, mask_prev, mask_curr, p: Dict[str, torch.Tensor],
 
 
 def check_widths(N: int, D: int, H: int, hh: int) -> None:
-    """Raise on widths the kernel does not tile: N slots up to 128 (four
-    ballot words per mask; the reference has no upper limit), D a
-    multiple of 16 (16-byte rows, k16 steps), H and hh multiples of 8
-    (16-byte W chunks, n8 tiles).  The only gate for D, H and hh: the C
-    entry points trust it."""
+    """Raise on widths the kernel does not tile: N slots up to ``MAX_N``
+    = 512 (the reference has no upper limit; above ``SMEM_N`` = 128
+    launch 2 streams its lines from device memory, and its lane
+    registers are sized for 512), D a multiple of 16 (16-byte rows, k16
+    steps), H and hh multiples of 8 (16-byte W chunks, n8 tiles).  The
+    only gate for D, H and hh: the C entry points trust it."""
     if not 0 < N <= MAX_N:
         raise ValueError(f"fused_affinity: N={N} outside 1..{MAX_N} (the "
                          f"kernel takes at most {MAX_N} slots a frame)")
@@ -198,9 +200,13 @@ def _library() -> ctypes.CDLL:
     """Build (first use in a checkout) and load ``csrc/affinity.cu``."""
     lib = ctypes.CDLL(str(build("affinity")))
     lib.mmmot_affinity_max_n.restype = ctypes.c_int
-    if lib.mmmot_affinity_max_n() != MAX_N:
-        raise RuntimeError(f"csrc/affinity.cu takes N up to "
-                           f"{lib.mmmot_affinity_max_n()}, MAX_N is {MAX_N}")
+    lib.mmmot_affinity_smem_n.restype = ctypes.c_int
+    if (lib.mmmot_affinity_max_n(), lib.mmmot_affinity_smem_n()) != (
+            MAX_N, SMEM_N):
+        raise RuntimeError(f"csrc/affinity.cu has kMaxN "
+                           f"{lib.mmmot_affinity_max_n()}, kSmemN "
+                           f"{lib.mmmot_affinity_smem_n()}; the wrapper "
+                           f"{MAX_N}, {SMEM_N}")
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.mmmot_affinity_products.argtypes = [ptr] * 17 + [i32] * 9 + [ptr]
     lib.mmmot_affinity_finish.argtypes = [ptr] * 17 + [i32] * 8 + [ptr]
@@ -330,7 +336,9 @@ def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor],
     ``fused_affinity.k_launches[K]`` and, with ``avg``, in
     ``fused_affinity.avg_launches``, and one each in
     ``fused_affinity.op_launches[ops]``, ``.pool_launches[pool]`` and
-    ``.mode_launches[softmax_mode]``; CPU tensors run ``affinity_plain``.
+    ``.mode_launches[softmax_mode]``, and above ``SMEM_N`` slots one in
+    ``fused_affinity.wide_launches`` (launch 2's instance that streams
+    its lines from device memory); CPU tensors run ``affinity_plain``.
     Raises on any input the kernel does not take.
     """
     ops = tuple(ops)
@@ -352,13 +360,14 @@ def fused_affinity(a, b, mask_prev, mask_curr, params: Dict[str, torch.Tensor],
     fused_affinity.op_launches[ops] += 1
     fused_affinity.pool_launches[pool] += 1
     fused_affinity.mode_launches[softmax_mode] += 1
+    fused_affinity.wide_launches += int(a.shape[2] > SMEM_N)
     return out
 
 
 def reset_launches() -> None:
     """Every launch count of ``fused_affinity`` to 0."""
     fused_affinity.launches = fused_affinity.bias_launches = 0
-    fused_affinity.avg_launches = 0
+    fused_affinity.avg_launches = fused_affinity.wide_launches = 0
     fused_affinity.k_launches = dict.fromkeys(range(1, MAX_K + 1), 0)
     fused_affinity.op_launches = collections.Counter()
     fused_affinity.pool_launches = dict.fromkeys(POOL_CODES, 0)

@@ -93,8 +93,10 @@ def build_host(name: str) -> Path:
 def _kernel_label(mangled: str) -> str:
     """``products_kernel<bf16>`` for a mangled kernel template instance
     (``...15products_kernelI13__nv_bfloat16E...``), ``finish_kernel<f32,
-    bias>`` for one whose bool argument is true (``...IfLb1EE...``;
-    ``products_kernel<bf16,segments>`` for the products' instance of
+    bias,16>`` for one whose bool argument is true and whose int argument
+    is 16 (``...IfLb1ELi16EEE...``: the affinity kernel's mask-list slots
+    in launch 1, a lane's entries of a line in launch 2;
+    ``products_kernel<bf16,segments,128>`` for the products' instance of
     several correlation ops),
     ``int8_conv_main_kernel<128,64,false>`` / ``int8_conv_stem_kernel<64>``
     for the int8 conv's instances and their arguments (output-channel
@@ -106,13 +108,14 @@ def _kernel_label(mangled: str) -> str:
         args = [v if k == "i" else ("false", "true")[int(v)]
                 for k, v in re.findall(r"L([ib])(\d+)E", m.group(2))]
         return f"{m.group(1)}<{','.join(args)}>"
-    m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Lb([01])E)?E",
-                  mangled)
+    m = re.search(r"([a-z][a-z_]*_kernel)I(13__nv_bfloat16|f)(?:Lb([01])E)?"
+                  r"(?:Li(\d+)E)?E", mangled)
     if m is None:
         return mangled
     flag = "segments" if m.group(1) == "products_kernel" else "bias"
     flag = f",{flag}" if m.group(3) == "1" else ""
-    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}{flag}>"
+    n = f",{m.group(4)}" if m.group(4) else ""
+    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}{flag}{n}>"
 
 
 def ptxas_summary(log: str) -> dict:

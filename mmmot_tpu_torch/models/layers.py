@@ -8,7 +8,10 @@ the compute dtype) and adds the bias in the compute dtype, as a flax
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -89,10 +92,20 @@ class _TrainNorm(torch.autograd.Function):
     position that makes the tie at 0 rare but possible), and the maximum
     splits the gradient evenly at a tie, as ``jnp.maximum`` does.  The
     output is ``(x - mean) * rsqrt(var + eps) * scale + bias`` with the
-    last multiply-add rounded once, cast to ``out_dtype``."""
+    last multiply-add rounded once, cast to ``out_dtype``.
+
+    With a process ``group`` (data parallelism; the reference's
+    ``axis_name``) ``cnt``, ``s1`` and ``s2`` are summed over its ranks
+    before the moments, and ``cnt`` is clamped to 1 after that sum; the
+    backward sums its two per-channel reductions (of ``g`` and of ``g (x
+    - mean)``) over the ranks as well, since every rank's input moved the
+    shared moments, while the scale's and bias's gradients stay this
+    rank's share (the trainer sums those with the other gradients).
+    Returns (y, mean, var, cnt), cnt the clamped global count."""
 
     @staticmethod
-    def forward(ctx, x, scale, bias, m, cnt, dims, shape, out_dtype):
+    def forward(ctx, x, scale, bias, m, cnt, dims, shape, out_dtype,
+                group=None):
         xf = x.float()
         if m is None:
             s1 = xf.sum(dims)
@@ -100,6 +113,11 @@ class _TrainNorm(torch.autograd.Function):
         else:
             s1 = (xf * m).sum(dims)
             s2 = (xf * xf * m).sum(dims)
+        if group is not None:
+            buf = torch.cat([s1, s2, cnt.reshape(1)])
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+            s1, s2, cnt = buf[:s1.numel()], buf[s1.numel():-1], buf[-1]
+        cnt = cnt.clamp_min(1.0)
         mean = s1 / cnt
         var_raw = fma(-mean, mean, s2 / cnt)
         var = torch.maximum(var_raw, torch.zeros_like(var_raw))
@@ -107,11 +125,12 @@ class _TrainNorm(torch.autograd.Function):
         y = fma((xf - mean.view(shape)) * inv.view(shape), scale.view(shape),
                 bias.view(shape))
         ctx.save_for_backward(x, scale, m, mean, var_raw, inv)
-        ctx.cnt, ctx.dims, ctx.shape = cnt, dims, shape
-        return y.to(out_dtype), mean, var
+        ctx.cnt, ctx.dims, ctx.shape, ctx.group = cnt, dims, shape, group
+        ctx.mark_non_differentiable(cnt)
+        return y.to(out_dtype), mean, var, cnt
 
     @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
+    def backward(ctx, gy, _gmean, _gvar, _gcnt):
         x, scale, m, mean, var_raw, inv = ctx.saved_tensors
         cnt, dims, shape = ctx.cnt, ctx.dims, ctx.shape
         g = gy.float()
@@ -119,6 +138,12 @@ class _TrainNorm(torch.autograd.Function):
         g_bias = g.sum(dims)
         g_xc = (g * xc).sum(dims)                 # sum g * (x - mean)
         g_scale = g_xc * inv
+        if ctx.group is not None:   # the moments' gradient sees every rank
+            buf = torch.cat([g_bias, g_xc])
+            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=ctx.group)
+            g_bias_all, g_xc = buf[:g_bias.numel()], buf[g_bias.numel():]
+        else:
+            g_bias_all = g_bias
         # y = xc * inv * scale + bias: through inv (var) and through mean.
         g_inv = g_xc * scale
         g_var = g_inv * (-0.5) * inv * inv * inv
@@ -126,12 +151,13 @@ class _TrainNorm(torch.autograd.Function):
                                                         0.0))
         g_raw = g_var * tie
         g_s2 = g_raw / cnt
-        g_s1 = (-inv * scale * g_bias - 2.0 * mean * g_raw) / cnt
+        g_s1 = (-inv * scale * g_bias_all - 2.0 * mean * g_raw) / cnt
         # Through s1 = sum(m x) and s2 = sum(m x^2).
         g_stats = g_s1.view(shape) + 2.0 * x.float() * g_s2.view(shape)
         gx = g * (inv * scale).view(shape) + (
             g_stats if m is None else m * g_stats)
-        return gx.to(x.dtype), g_scale, g_bias, None, None, None, None, None
+        return (gx.to(x.dtype), g_scale, g_bias, None, None, None, None,
+                None, None)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -150,7 +176,9 @@ class MaskedBatchNorm(nn.Module):
     running statistics then move as ``0.9 * old + 0.1 * new`` with the
     variance stored unbiased (``* cnt / max(cnt - 1, 1)``), unless
     ``freeze_stats`` is set (a recomputation under gradient
-    checkpointing)."""
+    checkpointing).  ``group`` (None: this process alone) is the process
+    group whose ranks share the train-mode moments (data parallelism:
+    ``parallel/mesh.py``, ``norm_group``)."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32,
                  dim: int = -1):
@@ -162,6 +190,7 @@ class MaskedBatchNorm(nn.Module):
         self.compute_dtype = dtype
         self.dim = dim
         self.freeze_stats = False
+        self.group = None
 
     def forward(self, x, mask=None):
         dim = self.dim % x.dim()
@@ -192,15 +221,31 @@ class MaskedBatchNorm(nn.Module):
             view.insert(dim, 1)
             m = mask.reshape(view).float()
             cnt = mask.sum().float() * (positions // max(mask.numel(), 1))
-        cnt = cnt.clamp_min(1.0)
-        y, mean, var = _TrainNorm.apply(x, self.weight, self.bias, m, cnt,
-                                        dims, shape, self.compute_dtype)
+        y, mean, var, cnt = _TrainNorm.apply(
+            x, self.weight, self.bias, m, cnt, dims, shape,
+            self.compute_dtype, self.group)
         if not self.freeze_stats:
             with torch.no_grad():
                 unbiased = var * (cnt / (cnt - 1.0).clamp_min(1.0))
                 self.running_mean.mul_(0.9).add_(0.1 * mean)
                 self.running_var.mul_(0.9).add_(0.1 * unbiased)
         return y
+
+
+@contextlib.contextmanager
+def norm_group(net: nn.Module, group):
+    """While open, every ``MaskedBatchNorm`` of ``net`` takes its
+    train-mode moments over the ranks of ``group`` (None: this process
+    alone); the earlier groups come back on exit."""
+    norms = [m for m in net.modules() if isinstance(m, MaskedBatchNorm)]
+    saved = [m.group for m in norms]
+    for m in norms:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(norms, saved):
+            m.group = g
 
 
 class MLP2(nn.Module):

@@ -32,8 +32,11 @@ real pipeline: the dead modality's input work is skipped, the net runs
 on the one left and the affinity scores the branches left (two for the
 flagship), with a carried state that holds no feats of the dead branch.
 
-Not ported, and raising ``NotImplementedError``: ``point_source="box3d"``
-and ``packed_cache``.
+``point_source="box3d"`` samples each detection's points inside its
+KITTI 3D box (the labels' dimensions, location and rotation) from the
+scan taken to rect coordinates, in place of its 2D frustum.
+``packed_cache`` memory-maps sequences packed by an earlier run
+(``data/packed_cache.py``).
 """
 
 from __future__ import annotations
@@ -77,15 +80,6 @@ def _seq_plan(arrs, window: int) -> Dict:
                                arrs.images.shape[2])
     return {"n_windows": n_windows, "capacity": capacity,
             "crop_window": crop_window}
-
-
-def _unsupported(data_cfg: DataConfig) -> None:
-    for what, bad in (
-            ("data.point_source='box3d'", data_cfg.point_source == "box3d"),
-            ("data.packed_cache", data_cfg.packed_cache)):
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to "
-                                      "mmmot_tpu_torch")
 
 
 def _window(x: np.ndarray, w: int, W: int, M: Optional[int] = None):
@@ -140,8 +134,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                                                write_kitti_result)
     from mmmot_tpu_torch.eval import HotaEvaluation, TrackingEvaluation
 
-    _unsupported(data_cfg)
     check_dead_sensor(dead_sensor)
+    use_box3d = data_cfg.point_source == "box3d"
     joint = data_cfg.track_class == "All"
     if joint and not module.class_gating:
         raise ValueError(
@@ -178,6 +172,8 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
         M_g = max(a.clouds.shape[1] for a in arrs_l)
         proj = torch.as_tensor(np.stack([a.proj for a in arrs_l]),
                                device=dev)
+        v2r = (torch.as_tensor(np.stack([a.velo_to_rect for a in arrs_l]),
+                               device=dev) if use_box3d else None)
         state = stack_states([module.init_state(N, dead_sensor)
                               for _ in members])
         # Per output: its fill value and trailing shape (ghost outputs
@@ -193,10 +189,11 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
         per_window = (("images", False), ("clouds", True),
                       ("cloud_valid", True), ("boxes", False),
                       ("det_mask", False)) + ((("cls_ids", False),)
-                                              if joint else ())
+                                              if joint else ()) + (
+            (("boxes3d", False),) if use_box3d else ())
         for w in range(n_windows):
             t0 = time.perf_counter()
-            im, cl, cv, bx, dm, *dcl = (
+            im, cl, cv, bx, dm, *extra = (
                 torch.as_tensor(np.stack([_window(getattr(a, f), w, W,
                                                   M_g if cloud else None)
                                           for a in arrs_l]), device=dev)
@@ -205,7 +202,9 @@ def track_kitti_sequences(module: TrackingModule, data_cfg: DataConfig,
                 module, im, cl, bx, dm, proj, crop, P, cloud_valid=cv,
                 compact_capacity=capacity, extract_chunk=chunk,
                 crop_window=crop_window, state0=state, return_state=True,
-                det_cls=dcl[0] if joint else None, dead_sensor=dead_sensor)
+                det_cls=extra[0] if joint else None, dead_sensor=dead_sensor,
+                boxes3d=extra[-1] if use_box3d else None, velo_to_rect=v2r,
+                point_source=data_cfg.point_source)
             o = {k: out[k].float().cpu().numpy() if fill == 0.0
                  else out[k].cpu().numpy() for k, (fill, _) in fields.items()}
             n_dropped += int(out["n_dropped"].sum())

@@ -1,14 +1,17 @@
 """Whole-sequence tracking: port of ``mmmot_tpu/tracker/sequence.py``,
-the crops-given ``track_sequence`` and the compact-first branch of
-``track_sequence_from_frames``
-with its execution strategies (``_scan_track``: ``_parallel_track``,
-``_hybrid_track``, ``_revival_track`` and the sequential scan), and of
+the crops-given ``track_sequence`` and ``track_sequence_from_frames``
+(its compact-first branch and, with ``compact_capacity=None``, its
+per-slot branch: whole-frame crops of every slot, no crop window, no
+dropped detection) with its execution strategies (``_scan_track``:
+``_parallel_track``, ``_hybrid_track``, ``_revival_track`` and the
+sequential scan), and of
 ``track_sequences_from_frames_batched`` (the S axis).
 
 1. The valid (frame, slot) pairs of each sequence are compacted up front,
    every sequence at one shared capacity.
 2. For each compacted detection of all S sequences, in chunks: crop a
-   band of its frame, resize and normalise it, sample its frustum points,
+   band of its frame, resize and normalise it, sample its frustum points
+   (or, with ``point_source="box3d"``, the points inside its 3D box),
    and extract features.
 3. The features are scattered back to [S, T, N] slots.
 4. The association (``_scan_track``).  The flagship's parallel pre-solve
@@ -36,9 +39,10 @@ import torch.nn.functional as F
 from mmmot_tpu_torch.assoc.solve import associate
 from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.models.layers import sigmoid
-from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_gathered,
+from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_batched,
+                                             crop_and_resize_gathered,
                                              normalize_crops)
-from mmmot_tpu_torch.ops.frustum import frustum_sample
+from mmmot_tpu_torch.ops.frustum import box3d_sample, frustum_sample
 from mmmot_tpu_torch.ops.masking import (compact_indices, pair_mask,
                                          scatter_compact)
 from mmmot_tpu_torch.tracker.tracker import (
@@ -434,41 +438,44 @@ def advance_pool(pool, dec, det_mask, box_curr, banks, t: int, N: int,
     return nxt, out
 
 
-def _require_capacity(compact_capacity: Optional[int]) -> int:
-    if compact_capacity is None:
-        raise ValueError(
-            "compact_capacity=None selects the reference's per-slot branch "
-            "(full-width crops of every slot, no crop window), which is not "
-            "ported; pass a capacity (the compact-first branch)")
-    return compact_capacity
-
-
 def check_dead_sensor(dead_sensor: Optional[str]) -> None:
     if dead_sensor not in (None, "camera", "lidar"):
         raise ValueError(f"dead_sensor must be camera/lidar, "
                          f"got {dead_sensor!r}")
 
 
+def check_point_source(point_source: str, boxes3d) -> None:
+    if point_source not in ("frustum", "box3d"):
+        raise ValueError(f"unknown point_source {point_source!r}")
+    if point_source == "box3d" and boxes3d is None:
+        raise ValueError("point_source='box3d' requires boxes3d [T, N, 7]")
+
+
 def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                            det_mask, proj, crop_size: Tuple[int, int],
-                           points_per_det: int, compact_capacity: int,
+                           points_per_det: int,
+                           compact_capacity: Optional[int],
                            extract_chunk: Optional[int] = None,
                            crop_window: int = 512, cloud_valid=None,
-                           det_cls=None, dead_sensor: Optional[str] = None):
-    """Compact-first feature extraction over S sequences of raw frames.
+                           det_cls=None, dead_sensor: Optional[str] = None,
+                           boxes3d=None, velo_to_rect=None,
+                           point_source: str = "frustum"):
+    """Feature extraction over S sequences of raw frames: compact-first
+    with ``compact_capacity``, per slot without it.
 
     Arguments as for :func:`track_sequences_from_frames_batched`, as
     tensors on ``module``'s device.  A dead camera (``dead_sensor=
-    "camera"``) skips the crops, a dead LiDAR the frustum sampling, and
+    "camera"``) skips the crops, a dead LiDAR the point sampling, and
     the net runs on the modality left; a net without a modality
     (``use_image`` / ``use_lidar`` off) skips its input work too (the
     reference's compiled window drops it as dead code).  Returns (feats
     {branch: [S, T, N, D]}, and ``"box"`` [S, T, N, 4] f32 when
     ``module.carry_boxes``, ``"cls"`` [S, T, N, 1] f32 when
     ``module.class_gating``; kept [S, T, N] bool: the valid slots that
-    fit in the capacity).
+    fit in the capacity, every valid slot per slot).
     """
     check_dead_sensor(dead_sensor)
+    check_point_source(point_source, boxes3d)
     mcfg = module.net.cfg
     use_cam = dead_sensor != "camera" and mcfg.use_image
     use_lidar = dead_sensor != "lidar" and mcfg.use_lidar
@@ -476,19 +483,44 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
     boxes, proj = boxes.float(), proj.float()
     scale = 1.0 / 255.0 if images.dtype == torch.uint8 else 1.0
     S, T, N = det_mask.shape
-    capacity = min(_require_capacity(compact_capacity), T * N)
     dev = det_mask.device
+    images = images.reshape((S * T,) + images.shape[2:])
+    clouds = clouds.reshape((S * T,) + clouds.shape[2:])
+    if cloud_valid is not None:
+        cloud_valid = cloud_valid.bool().reshape(S * T, -1)
+    proj_s = proj.expand(S, 3, 4)
+    if point_source == "box3d":
+        boxes3d = boxes3d.float().reshape(S * T, N, 7)
+        if velo_to_rect is not None:
+            velo_to_rect = velo_to_rect.float().expand(S, 3, 4)
+
+    def sample_points(f_k, s_k, m_k):
+        """Point samples [n, k, P, C] and masks [n, k, P] of the k
+        detections s_k [n, k] (slots of the frame) of frames f_k [n];
+        m_k [n, k] their validity."""
+        cl = clouds[f_k]
+        pv = cloud_valid[f_k] if cloud_valid is not None else None
+        if point_source == "box3d":
+            return box3d_sample(
+                cl, boxes3d[f_k[:, None], s_k], points_per_det,
+                None if velo_to_rect is None else velo_to_rect[f_k // T],
+                det_mask=m_k, point_valid=pv)
+        return frustum_sample(
+            cl, boxes.reshape(S * T, N, 4)[f_k[:, None], s_k],
+            proj_s[f_k // T], points_per_det, det_mask=m_k,
+            point_valid=pv)
+
+    if compact_capacity is None:
+        return _extract_per_slot(module, images, boxes, det_mask,
+                                 crop_size, extract_chunk, det_cls,
+                                 use_cam, use_lidar, scale, sample_points)
+    capacity = min(compact_capacity, T * N)
     idx, taken = compact_indices(det_mask.reshape(S, T * N), capacity)
     # Row r of sequence s reads frame s*T + idx // N and slot s*T*N + idx.
     seq = torch.arange(S, device=dev)[:, None]
     frame = (seq * T + idx // N).reshape(-1)
     slot = (seq * (T * N) + idx).reshape(-1)
     taken = taken.reshape(-1)
-    images = images.reshape((S * T,) + images.shape[2:])
-    clouds = clouds.reshape((S * T,) + clouds.shape[2:])
-    if cloud_valid is not None:
-        cloud_valid = cloud_valid.bool().reshape(S * T, -1)
-    proj_s = proj.expand(S, 3, 4)
 
     def extract(f_k, s_k, m_k):
         bx_k = boxes.reshape(S * T * N, 4)[s_k]
@@ -498,11 +530,8 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                                              mask=m_k, window=crop_window)
             crops = normalize_crops(crops, scale=scale)
         if use_lidar:
-            pv = cloud_valid[f_k] if cloud_valid is not None else None
-            pts, pmask = frustum_sample(clouds[f_k], bx_k[:, None, :],
-                                        proj_s[f_k // T], points_per_det,
-                                        det_mask=m_k[:, None],
-                                        point_valid=pv)
+            pts, pmask = sample_points(f_k, (s_k % N)[:, None],
+                                       m_k[:, None])
             pts, pmask = pts[:, 0], pmask[:, 0]
         return module.extract(crops, pts, pmask, m_k)
 
@@ -513,6 +542,51 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                  .reshape(S, T, N, -1) for k, v in feats_c.items()}
         kept = torch.zeros(S * T * N, dtype=torch.bool, device=dev)
         kept[slot] = taken
+    return _with_boxes_and_classes(module, feats, boxes, det_cls), \
+        kept.reshape(S, T, N)
+
+
+def _extract_per_slot(module, images, boxes, det_mask, crop_size,
+                      extract_chunk, det_cls, use_cam, use_lidar, scale,
+                      sample_points):
+    """The reference's per-slot branch (``compact_capacity=None``): every
+    slot of every frame, valid or not, cropped from the whole frame
+    (``crop_and_resize_batched``, no crop window) and sampled; the net
+    extracts all S * T * N rows (``extract_chunk`` at a time) and nothing
+    is dropped.  ``images`` are [S * T, H, W, 3]; returns what
+    :func:`extract_frames_batched` returns."""
+    S, T, N = det_mask.shape
+    flat = det_mask.reshape(-1)
+    dev = det_mask.device
+    with torch.inference_mode(), f32_parity(module.parity):
+        crops = pts = pmask = None
+        if use_cam:
+            crops = crop_and_resize_batched(
+                images.float(), boxes.reshape(S * T, N, 4), crop_size,
+                det_mask.reshape(S * T, N))
+            crops = normalize_crops(crops, scale=scale).flatten(0, 1)
+        if use_lidar:
+            pts, pmask = sample_points(
+                torch.arange(S * T, device=dev),
+                torch.arange(N, device=dev).expand(S * T, N),
+                det_mask.reshape(S * T, N))
+            pts, pmask = pts.flatten(0, 1), pmask.flatten(0, 1)
+        rows = tuple(x for x in (crops, pts, pmask) if x is not None)
+
+        def extract(*args):
+            it = iter(args)
+            c = next(it) if use_cam else None
+            p, pm = (next(it), next(it)) if use_lidar else (None, None)
+            return module.extract(c, p, pm, next(it))
+
+        feats = _chunked(extract, rows + (flat,), S * T * N, extract_chunk)
+        feats = {k: v.reshape(S, T, N, -1) for k, v in feats.items()}
+    return _with_boxes_and_classes(module, feats, boxes, det_cls), det_mask
+
+
+def _with_boxes_and_classes(module, feats, boxes, det_cls):
+    """``feats`` with the ``"box"`` and ``"cls"`` entries the module reads
+    (its carried boxes, its class gate)."""
     if module.carry_boxes:
         feats["box"] = boxes
     if module.class_gating:
@@ -520,21 +594,25 @@ def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
             raise ValueError("class_gate needs det_cls, the class-group id "
                              "of every detection slot")
         feats["cls"] = det_cls.float()[..., None]
-    return feats, kept.reshape(S, T, N)
+    return feats
 
 
 def extract_frames(module: TrackingModule, images, clouds, boxes, det_mask,
                    proj, crop_size: Tuple[int, int], points_per_det: int,
                    compact_capacity: Optional[int] = None,
                    extract_chunk: Optional[int] = None,
-                   crop_window: int = 512, cloud_valid=None, det_cls=None):
+                   crop_window: int = 512, cloud_valid=None, det_cls=None,
+                   boxes3d=None, velo_to_rect=None,
+                   point_source: str = "frustum"):
     """:func:`extract_frames_batched` for one sequence (no S axis)."""
+    def one(x):
+        return None if x is None else x[None]
+
     feats, kept = extract_frames_batched(
         module, images[None], clouds[None], boxes[None], det_mask[None],
-        proj, crop_size, points_per_det, _require_capacity(compact_capacity),
-        extract_chunk, crop_window,
-        None if cloud_valid is None else cloud_valid[None],
-        None if det_cls is None else det_cls[None])
+        proj, crop_size, points_per_det, compact_capacity, extract_chunk,
+        crop_window, one(cloud_valid), one(det_cls), boxes3d=one(boxes3d),
+        velo_to_rect=velo_to_rect, point_source=point_source)
     return {k: v[0] for k, v in feats.items()}, kept[0]
 
 
@@ -544,17 +622,24 @@ def track_sequences_from_frames_batched(
         cloud_valid=None, compact_capacity: Optional[int] = None,
         extract_chunk: Optional[int] = None, crop_window: int = 512,
         state0: Optional[TrackerState] = None, return_state: bool = False,
-        det_cls=None, dead_sensor: Optional[str] = None):
+        det_cls=None, dead_sensor: Optional[str] = None, boxes3d=None,
+        velo_to_rect=None, point_source: str = "frustum"):
     """Track S sequences from raw frames on ``module``'s device.
 
     images [S, T, H, W, 3] uint8 (or float pixels), clouds [S, T, M, C],
     boxes [S, T, N, 4] (l, t, r, b pixels), det_mask [S, T, N] bool, proj
     [S, 3, 4] (or one [3, 4] for all), cloud_valid [S, T, M] bool or None,
     det_cls [S, T, N] class-group ids (read with the class gate, which
-    needs them); numpy arrays or tensors.  ``compact_capacity`` bounds
-    the detections extracted per sequence (``None``, the reference's
-    per-slot branch, raises); valid detections past it are dropped and
-    counted in ``n_dropped``.  ``state0`` is a state with a leading [S]
+    needs them); numpy arrays or tensors.  ``point_source="box3d"``
+    samples the points inside each detection's 3D box, boxes3d [S, T, N,
+    7] (KITTI (h, w, l, x, y, z, ry) in rect coordinates), from the
+    clouds taken to rect coordinates by velo_to_rect [S, 3, 4] (or one
+    [3, 4]; None: the clouds are rectified already).
+    ``compact_capacity`` bounds the detections extracted per sequence;
+    valid detections past it are dropped and counted in ``n_dropped``.
+    ``None`` runs the reference's per-slot branch: every slot cropped
+    from its whole frame (no crop window, ``crop_window`` unread) and
+    extracted, none dropped.  ``state0`` is a state with a leading [S]
     axis (default: empty).  ``dead_sensor`` ("camera" or "lidar")
     simulates a failed sensor: its input work is skipped and the
     affinity scores the branches left (see
@@ -566,19 +651,19 @@ def track_sequences_from_frames_batched(
     and "ghost_scores" [S, T, N]; the final state too with
     ``return_state``.
     """
-    _require_capacity(compact_capacity)
     dev = module.device
     images, clouds, boxes, det_mask, proj = (
         torch.as_tensor(x, device=dev)
         for x in (images, clouds, boxes, det_mask, proj))
-    cloud_valid, det_cls = (None if x is None else torch.as_tensor(
-        x, device=dev) for x in (cloud_valid, det_cls))
+    cloud_valid, det_cls, boxes3d, velo_to_rect = (
+        None if x is None else torch.as_tensor(x, device=dev)
+        for x in (cloud_valid, det_cls, boxes3d, velo_to_rect))
     det_mask = det_mask.bool()
-    S, _, N = det_mask.shape
     feats, kept = extract_frames_batched(
         module, images, clouds, boxes, det_mask, proj, crop_size,
         points_per_det, compact_capacity, extract_chunk, crop_window,
-        cloud_valid, det_cls, dead_sensor)
+        cloud_valid, det_cls, dead_sensor, boxes3d, velo_to_rect,
+        point_source)
     out, final = _scan_track(module, feats, kept, state0)
     out["n_dropped"] = (det_mask.sum((1, 2)) - kept.sum((1, 2))).to(
         torch.int32)
@@ -657,6 +742,45 @@ def track_sequence(module: TrackingModule, crops, points, point_mask,
     return out
 
 
+def track_sequences_batched(module: TrackingModule, crops, points,
+                            point_mask, det_mask, boxes=None):
+    """Track S sequences of padded, already cropped detections at once
+    (the reference's ``track_sequences_batched``, ``track_sequence``
+    vmapped over S): crops [S, T, N, h, w, 3], points [S, T, N, P, C],
+    point_mask [S, T, N, P], det_mask [S, T, N], boxes [S, T, N, 4] when
+    the module carries boxes; every slot is extracted.  Returns {"ids":
+    [S, T, N] int32, "det_score": [S, T, N], "n_dropped": [S] zeros} (and
+    the ghost outputs with coverage).  Sequences share nothing, so the S
+    axis splits over data-parallel ranks (``parallel/mesh.py``): each
+    sequence is extracted by a call of its own, so that its features do
+    not hang on how many sequences share a call (cuBLAS and cuDNN pick
+    their kernels by the batch), and its ids on one rank are its ids in
+    one process."""
+    if module.class_gating:
+        raise ValueError("track_sequences_batched takes no class ids: a "
+                         "class-gated module tracks raw frames")
+    dev = module.device
+    crops, points, point_mask, det_mask = (
+        None if x is None else torch.as_tensor(x, device=dev)
+        for x in (crops, points, point_mask, det_mask))
+    det_mask = det_mask.bool()
+    point_mask = None if point_mask is None else point_mask.bool()
+    per = [module.extract(None if crops is None else crops[i],
+                          None if points is None else points[i],
+                          None if point_mask is None else point_mask[i],
+                          det_mask[i]) for i in range(det_mask.shape[0])]
+    feats = {k: torch.stack([f[k] for f in per]) for k in per[0]}
+    if module.carry_boxes:
+        if boxes is None:
+            raise ValueError("this module carries boxes (spatial gate, "
+                             "coverage or motion): pass boxes [S, T, N, 4]")
+        feats["box"] = torch.as_tensor(boxes, device=dev).float()
+    out, _ = _scan_track(module, feats, det_mask)
+    out["n_dropped"] = torch.zeros(det_mask.shape[0], dtype=torch.int32,
+                                   device=dev)
+    return out
+
+
 def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
                                det_mask, proj, crop_size: Tuple[int, int],
                                points_per_det: int, cloud_valid=None,
@@ -665,17 +789,21 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
                                crop_window: int = 512,
                                state0: Optional[TrackerState] = None,
                                return_state: bool = False, det_cls=None,
-                               dead_sensor: Optional[str] = None):
+                               dead_sensor: Optional[str] = None,
+                               boxes3d=None, velo_to_rect=None,
+                               point_source: str = "frustum"):
     """Track one sequence from raw frames on ``module``'s device.
 
     images [T, H, W, 3] uint8 (or float pixels), clouds [T, M, C], boxes
     [T, N, 4] (l, t, r, b pixels), det_mask [T, N] bool, proj [3, 4],
     cloud_valid [T, M] bool or None (padded cloud entries), det_cls [T, N]
     class-group ids (read with the class gate); numpy arrays or tensors.
-    ``dead_sensor`` ("camera" or "lidar") as for
-    :func:`track_sequences_from_frames_batched`.  ``compact_capacity`` bounds the detections extracted (``None``, the
-    reference's per-slot branch, raises); valid detections past it are
-    dropped and counted in ``n_dropped``.  ``state0`` continues
+    ``dead_sensor`` ("camera" or "lidar"), ``boxes3d`` [T, N, 7],
+    ``velo_to_rect`` [3, 4] and ``point_source`` as for
+    :func:`track_sequences_from_frames_batched`.  ``compact_capacity``
+    bounds the detections extracted; valid detections past it are
+    dropped and counted in ``n_dropped`` (``None``: the per-slot branch,
+    which drops none).  ``state0`` continues
     a longer sequence from the state an earlier window returned.  Returns
     {"ids": [T, N] int32 (-1 at empty slots), "det_score": [T, N],
     "n_dropped": 0-dim int} (and the ghost outputs of
@@ -694,7 +822,10 @@ def track_sequence_from_frames(module: TrackingModule, images, clouds, boxes,
         torch.as_tensor(proj, device=dev), crop_size, points_per_det,
         cloud_valid=one(cloud_valid), compact_capacity=compact_capacity,
         extract_chunk=extract_chunk, crop_window=crop_window, state0=state0,
-        return_state=True, det_cls=one(det_cls), dead_sensor=dead_sensor)
+        return_state=True, det_cls=one(det_cls), dead_sensor=dead_sensor,
+        boxes3d=one(boxes3d), velo_to_rect=None if velo_to_rect is None
+        else torch.as_tensor(velo_to_rect, device=dev),
+        point_source=point_source)
     out = {k: v[0] for k, v in out.items()}
     if not return_state:
         return out

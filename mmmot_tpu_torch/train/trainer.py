@@ -16,6 +16,13 @@ are those of the reference's optax chain:
 
 Update k (k earlier updates) uses ``schedule(k)``.  A parameter that got
 no gradient counts as a zero gradient, as every optax leaf does.
+
+Data parallelism (``train_step(..., group=)``, the counterpart of the
+reference's step on a batch sharded over its mesh): each rank runs the
+forward on its rows with the BatchNorm moments shared over the group
+(``models/layers.py::norm_group``) and the loss normalised by the
+group's counts, then the gradients are summed over the group before the
+clip and the global norm, so every rank takes the same update.
 """
 
 from __future__ import annotations
@@ -25,9 +32,11 @@ from dataclasses import dataclass
 from typing import Callable, Dict, Tuple
 
 import torch
+import torch.distributed as dist
 
 from mmmot_tpu_torch.config import TrainConfig
 from mmmot_tpu_torch.device import f32_parity
+from mmmot_tpu_torch.models.layers import norm_group
 from mmmot_tpu_torch.train.losses import tracking_loss
 
 
@@ -166,33 +175,59 @@ def create_train_state(net, cfg: TrainConfig,
 
 def loss_and_grads(net, batch: Dict[str, torch.Tensor],
                    loss_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0),
-                   compact_capacity: int = 0):
+                   compact_capacity: int = 0, group=None):
     """The train-mode forward, the loss and its gradients (left in each
     parameter's ``.grad``, earlier ones cleared); the running statistics
-    move once.  Returns (loss, metrics)."""
+    move once.  Returns (loss, metrics).  With a process ``group`` the
+    BatchNorm moments and the loss normalisers span its ranks, and the
+    loss, metrics and gradients are this rank's shares (``train_step``
+    sums them)."""
     net.train()
     for p in net.parameters():
         p.grad = None
-    outputs = net(batch, compact_capacity=compact_capacity)
-    loss, metrics = tracking_loss(outputs, batch, loss_weights)
-    loss.backward()
+    with norm_group(net, group):
+        outputs = net(batch, compact_capacity=compact_capacity)
+        loss, metrics = tracking_loss(outputs, batch, loss_weights, group)
+        loss.backward()
     return loss, metrics
+
+
+def sum_over_group(tensors, group) -> None:
+    """Each tensor summed over the ranks of ``group``, in place, by one
+    all-reduce of their float32 concatenation."""
+    flat = torch.cat([t.reshape(-1).float() for t in tensors])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    for t, part in zip(tensors, flat.split([t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                loss_weights: Tuple[float, ...] = (1.0, 1.0, 1.0, 1.0),
-               compact_capacity: int = 0
+               compact_capacity: int = 0, group=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step on ``batch`` (tensors on the net's device).
     Returns (state, metrics): the loss terms, ``total`` and
     ``grad_norm``, the norm of the raw gradients, before the clip, as
     0-dim tensors (nothing here waits for the device).  float32 models
-    run with TF32 off."""
+    run with TF32 off.
+
+    With a process ``group`` ``batch`` is this rank's share of the
+    batch and the step is data-parallel: moments, normalisers, metrics
+    and gradients span the group, so the metrics and the update are
+    those of one process on the whole batch (within float32 rounding:
+    sums are taken in another order).  ``compact_capacity`` then bounds
+    each rank's rows; the step equals the whole batch's where no rank
+    drops a detection."""
     net = state.net
     with f32_parity(net.compute_dtype == torch.float32):
         _, metrics = loss_and_grads(net, batch, loss_weights,
-                                    compact_capacity)
+                                    compact_capacity, group)
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if group is not None:
+            params, grads = state.optimizer.params_and_grads()
+            for p, g in zip(params, grads):
+                p.grad = g          # a missing gradient sums as zeros
+            sum_over_group(grads + list(metrics.values()), group)
         metrics["grad_norm"] = global_norm(
             state.optimizer.params_and_grads()[1])
         state.optimizer.step()

@@ -3,7 +3,7 @@ plain version) against the JAX package's Pallas kernel in interpret mode
 and against ``TrackingNet.affinity``, with shared weights, for every
 instance: the correlation ops (one, two, all four: W1 of len(ops) x D
 rows, a net of those ops each), the pools and softmax modes (the same
-weights, the JAX net configured with them), and N up to 128.  The CUDA
+weights, the JAX net configured with them), and N up to 192.  The CUDA
 kernel itself is held to ``affinity_plain`` on the card by
 tests/test_torch_cuda.py and ``chip_smoke.py``."""
 
@@ -100,6 +100,12 @@ CASES = {
              [tuple(range(1, 100, 3)), 57, 0]),
     "n128": (128, [128, (5, 64, 96, 127), 0],
              [tuple(range(0, 128, 2)), 0, (31, 32, 63, 64, 127)]),
+    # N above 128 (launch 2 streams its lines from device memory): the
+    # revival's 2N = 192 slots at max_dets 96, and N=130 past a ballot
+    # word; holed, empty and full frames.
+    "n130": (130, [(0, 64, 128, 129), 130], [130, (1, 127, 129)]),
+    "n192": (192, [tuple(range(0, 192, 3)), 0, 192],
+             [(0, 95, 96, 191), 120, 0]),
 }
 # Instances (correlation ops, pool, softmax mode) of the cases below;
 # every other case runs the shipped instance (subabs, max, dual).
@@ -226,11 +232,11 @@ def test_build_is_keyed_atomic_and_cached(tmp_path, monkeypatch):
 @pytest.mark.parametrize("preset", [tiny_debug, full_mmmot])
 def test_check_widths_takes_the_presets(preset):
     m = preset().model
-    for N in (1, 32, 64, 128):
+    for N in (1, 32, 64, 128, 129, 256, 512):
         check_widths(N, m.fusion.out_dim, m.affinity.hidden_dim,
                      m.new_end.hidden_dim)
 
-@pytest.mark.parametrize("widths", [(0, 64, 32, 32), (129, 64, 32, 32),
+@pytest.mark.parametrize("widths", [(0, 64, 32, 32), (513, 64, 32, 32),
                                     (32, 72, 32, 32), (32, 64, 36, 32),
                                     (32, 64, 32, 12), (32, 0, 32, 32)])
 def test_check_widths_rejects_untiled_widths(widths):
@@ -245,6 +251,11 @@ def test_ptxas_and_sass_summaries():
     finish = (f"{ns}13finish_kernelIfLb0EEvPKfS2_PKhS4_S2_S2_PKT_S2_S2_S2_"
               "S7_S2_PS5_S8_S8_S8_S2_iii")
     finish_bias = finish.replace("IfLb0EE", "I13__nv_bfloat16Lb1EE")
+    # launch 2's instances with a lane's entries of a line as their last
+    # argument (4: lines in shared memory, 16: streamed)
+    finish_4, finish_16 = (finish.replace("IfLb0EE", f"IfLb0ELi{u}EEE")
+                           for u in (4, 16))
+    finish_bias_16 = finish.replace("IfLb0EE", "I13__nv_bfloat16Lb1ELi16EEE")
     log = (f"ptxas info    : Compiling entry function '{products}' for "
            "'sm_90a'\n"
            f"ptxas info    : Function properties for {products}\n"
@@ -260,12 +271,20 @@ def test_ptxas_and_sass_summaries():
            "'sm_90a'\n"
            "ptxas info    : Used 50 registers, used 1 barriers, 34560 bytes "
            "smem\n")
+    log += "".join(f"ptxas info    : Compiling entry function '{name}' for "
+                   f"'sm_90a'\nptxas info    : Used {regs} registers, used 1 "
+                   "barriers, 2432 bytes smem\n"
+                   for name, regs in ((finish_4, 64), (finish_16, 80),
+                                      (finish_bias_16, 80)))
     assert kbuild.ptxas_summary(log) == {
         "products_kernel<bf16>": dict(stack=48, spill_stores=40,
                                       spill_loads=40, registers=128,
                                       smem=5504),
         "finish_kernel<f32>": dict(registers=48, smem=34560),
-        "finish_kernel<bf16,bias>": dict(registers=50, smem=34560)}
+        "finish_kernel<bf16,bias>": dict(registers=50, smem=34560),
+        "finish_kernel<f32,4>": dict(registers=64, smem=2432),
+        "finish_kernel<f32,16>": dict(registers=80, smem=2432),
+        "finish_kernel<bf16,bias,16>": dict(registers=80, smem=2432)}
     sass = (f"\t\tFunction : {products}\n"
             "        /*0450*/                   HMMA.16816.F32.BF16 R24, R4, "
             "R20, R24 ;   /* 0x000000140418723c */\n"

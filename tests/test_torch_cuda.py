@@ -164,11 +164,17 @@ INSTANCES = [(("mul",), "max", "dual"), (("diff",), "max", "dual"),
              (("subabs",), "mean", "dual"), (("subabs",), "softmax", "dual"),
              (("subabs",), "max", "single"), (("subabs",), "max", "none"),
              (("cosine", "mul"), "softmax", "none")]
-# N above 64: holed, empty and full frames at N=100 and N=128.
+# N above 64: holed, empty and full frames at N=100 and N=128, and at
+# N=192, where launch 2 streams its lines from device memory (the
+# revival's 2N at max_dets 96).
 WIDE_CASES = [(100, [(0, 7, 33, 64, 65, 99), 0, 100],
                [tuple(range(1, 100, 3)), 57, 0]),
               (128, [128, (5, 64, 96, 127), 0],
-               [tuple(range(0, 128, 2)), 0, (31, 32, 63, 64, 127)])]
+               [tuple(range(0, 128, 2)), 0, (31, 32, 63, 64, 127)]),
+              (192, [tuple(range(0, 192, 3)), 0, 192],
+               [(0, 95, 96, 191), 120, 0]),
+              (384, [tuple(range(1, 384, 5)), 384, 0],
+               [(0, 255, 256, 383), 300, 384])]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -213,12 +219,20 @@ def test_kernel_ops_pools_modes_match_plain(gpu, dtype, ops, pool, mode):
 
 
 def test_kernel_refuses_n_above_128(gpu):
+    """Past its limit (``MAX_N`` = 512 since launch 2 streams its lines
+    above 128) the kernel refuses N by name; at 129 it launches the
+    streaming instance."""
     net = init_random_(TrackingNet(tiny_debug().model, device=gpu), 0)
     params = build_affinity_params(net, torch.float32)
-    a = torch.zeros((1, 3, 129, 64), device=gpu)
-    m = torch.ones((1, 129), dtype=torch.bool, device=gpu)
-    with pytest.raises(ValueError, match="N=129"):
+    a = torch.zeros((1, 3, 513, 64), device=gpu)
+    m = torch.ones((1, 513), dtype=torch.bool, device=gpu)
+    with pytest.raises(ValueError, match="N=513"):
         fused_affinity(a, a, m, m, params)
+    before = fused_affinity.wide_launches
+    fused_affinity(a[:, :, :129].contiguous(), a[:, :, :129].contiguous(),
+                   m[:, :129].contiguous(), m[:, :129].contiguous(), params)
+    torch.cuda.synchronize()
+    assert fused_affinity.wide_launches == before + 1
 
 
 # Model variants: fusion A with the T-Net, mul, the softmax pool and the

@@ -2,7 +2,8 @@
 
 A fresh interpreter installs a ``sys.meta_path`` finder that refuses
 those names, imports every module of ``mmmot_tpu_torch`` and loads
-``chip_smoke.py``, ``auction_rounds.py`` and ``int8_ids.py`` as modules
+``chip_smoke.py``, ``auction_rounds.py``, ``int8_ids.py`` and
+``affinity_ab.py`` as modules
 (without running ``main``); none of the
 refused names may reach ``sys.modules``.  The track and train CLIs'
 ``--help`` and a two-step synthetic training run on the CPU run under
@@ -38,7 +39,7 @@ names = [m.name for m in pkgutil.walk_packages(mmmot_tpu_torch.__path__,
                                                 "mmmot_tpu_torch.")]
 for n in names:
     importlib.import_module(n)
-for script in ("chip_smoke", "auction_rounds", "int8_ids"):
+for script in ("chip_smoke", "auction_rounds", "int8_ids", "affinity_ab"):
     spec = importlib.util.spec_from_file_location(script, script + ".py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)

@@ -18,6 +18,7 @@ printed value may differ within the float32 tolerance of the fixtures
 
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -193,18 +194,30 @@ def test_stack_states_round_trip(models):
     ("packed_cache", True, None), (None, None, "radar")])
 def test_runner_unported_options_raise(models, tree, tmp_path, field, value,
                                        arg):
-    """Unported options raise ``NotImplementedError``; ``track_class="All"``
-    is ported and, as in the reference, raises ``ValueError`` without the
-    class gate it needs (tests/test_torch_lookalike.py runs it), and so
-    does a ``dead_sensor`` other than camera or lidar (the dead-sensor
-    runner is held to the reference in tests/test_torch_branches.py)."""
+    """``track_class="All"`` raises ``ValueError`` without the class gate
+    it needs, as in the reference (tests/test_torch_lookalike.py runs
+    it), and so does a ``dead_sensor`` other than camera or lidar (the
+    dead-sensor runner is held to the reference in
+    tests/test_torch_branches.py).  ``point_source="box3d"`` and
+    ``packed_cache``, which raised before they were ported, now run
+    (their files are held to the reference's in
+    tests/test_torch_raw_options.py)."""
     _, _, net = models
-    _, td = data_cfgs(tree)
+    if field == "packed_cache":          # the cache writes into its tree
+        tree = shutil.copytree(tree, tmp_path / "tree")
+    _, td = data_cfgs(str(tree))
     if field:
         td = dataclasses.replace(td, **{field: value})
+    if value in ("box3d", True):
+        stats = track_kitti_sequences(TrackingModule(net), td,
+                                      str(tmp_path / "res"), window=2,
+                                      max_frames=2, evaluate=False)
+        assert stats["n_dropped"] == 0 and stats["n_windows"] == 2
+        if value is True:
+            assert os.path.isdir(os.path.join(tree, ".packed", "frames"))
+        return
     err, match = ((ValueError, "class_gate") if value == "All"
-                  else (ValueError, "dead_sensor") if arg
-                  else (NotImplementedError, "not ported"))
+                  else (ValueError, "dead_sensor"))
     with pytest.raises(err, match=match):
         track_kitti_sequences(TrackingModule(net), td, str(tmp_path),
                               dead_sensor=arg)
@@ -235,9 +248,12 @@ def test_cli_end_to_end_with_npz_weights(models, tree, tmp_path):
     assert cli_files == files_of(tmp_path / "direct")
     assert sorted(zipfile.ZipFile(tmp_path / "sub.zip").namelist()) == [
         "0000.txt", "0001.txt"]
+    # A directory without image_02/ is no tree (a path that is no
+    # directory runs the synthetic mode: tests/test_torch_raw_options.py).
+    os.makedirs(tmp_path / "no_tree")
     with pytest.raises(SystemExit, match="no KITTI tracking tree"):
         main(["--config", "tiny_debug", "--cpu", "--data-root",
-              str(tmp_path / "nowhere")])
+              str(tmp_path / "no_tree")])
 
 
 def assert_results_equal(port_files, ref_files):

@@ -166,12 +166,26 @@ def test_bfloat16_ids_equal_reference_pallas(bf16_pair, seed):
 
 
 def test_compact_capacity_none_raises(models):
-    """``None`` is the reference's per-slot branch, which is not ported."""
+    """``None`` is the reference's per-slot branch, ported since it raised
+    here (its ids are held to the reference's in
+    tests/test_torch_raw_options.py): every valid slot is kept and
+    nothing dropped.  What still raises is the reference's refusal of a
+    point source it does not know and of ``box3d`` without 3D boxes."""
     _, _, net = models
     images, clouds, boxes, det_mask, proj = raw_sequence(11)
-    with pytest.raises(ValueError, match="per-slot branch"):
+    out = track_sequence_from_frames(TrackingModule(net), images, clouds,
+                                     boxes, det_mask, proj, (32, 32), P)
+    assert int(out["n_dropped"]) == 0
+    feats, kept = extract_frames(TrackingModule(net), *(
+        torch.as_tensor(x) for x in (images, clouds, boxes, det_mask, proj)),
+        (32, 32), P)
+    assert torch.equal(kept, torch.as_tensor(det_mask))
+    assert feats["fused"].shape[:2] == det_mask.shape
+    with pytest.raises(ValueError, match="unknown point_source"):
         track_sequence_from_frames(TrackingModule(net), images, clouds,
-                                   boxes, det_mask, proj, (32, 32), P)
-    with pytest.raises(ValueError, match="per-slot branch"):
+                                   boxes, det_mask, proj, (32, 32), P,
+                                   point_source="radar")
+    with pytest.raises(ValueError, match="requires boxes3d"):
         extract_frames(TrackingModule(net), *(torch.as_tensor(x) for x in (
-            images, clouds, boxes, det_mask, proj)), (32, 32), P)
+            images, clouds, boxes, det_mask, proj)), (32, 32), P,
+            point_source="box3d")
