@@ -63,11 +63,11 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    on the tree's first 16 frames, the revival hybrid must equal the
    sequential ``step_from_feats`` scan (ids and coverage outputs; 2
    kernel launches against 16).  Then the
-   full-width noisy runner over the tree (window 64, two sequences per
-   call, the ghost pool carried across the boundary): no dropped
+   full-width noisy runner over the first window of the tree (its
+   first 64 frames, two sequences per call): no dropped
    detections, finite scores, ids that follow the revival rules, two
-   fused-kernel launches per window; then one window again with its
-   stages timed (extraction, band affinity, the per-frame scan, ids),
+   fused-kernel launches per window, that window's stages timed
+   (extraction, band affinity, the per-frame scan, ids),
    the auction's rounds per frame, and the kernel's outputs on that
    window's own band and entry-band inputs held against the plain
    version.  Its JSON line ``{"quality": ...}`` follows;
@@ -81,11 +81,11 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    exactly 0), with its timings; heads calibrated as in phase 7; the
    motion-only model (the same weights without the GNN rounds) on the
    tree's first 16 frames, S=1: its revival hybrid must equal its
-   sequential scan (2 launches against 16); the runner over the tree
-   (window 64, two sequences per call, the sequential scan: 64
-   bias-instance launches per window and no other, no dropped
-   detections, ids that follow the revival rules); one window again
-   with its stages timed (extraction, GNN rounds, motion term, kernel,
+   sequential scan (2 launches against 16); the runner over the first
+   window of the tree (64 frames, two sequences per call, the sequential
+   scan: 64 bias-instance launches per window and no other, no dropped
+   detections, ids that follow the revival rules), that window's
+   stages timed (extraction, GNN rounds, motion term, kernel,
    scan and its auction, ghost pool, frame step) and the auction's
    rounds per frame, three of its kernel calls held against the plain
    version.  Its JSON line ``{"lookalike": ...}`` follows, and the kernel
@@ -176,8 +176,9 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    for tiny ``fusion_C``, ``img_only``, ``lidar_only`` (Sinkhorn),
    ``tiny_debug`` with the greedy solver, and ``tiny_debug`` with a dead
    camera, then a dead LiDAR; ``lap``, ``ilp`` and ``native`` equal on 32
-   seeded instances; (c) at full width on the tree (S=2, window 64,
-   seeded random weights): ``fusion_C``, ``img_only``, ``lidar_only`` and
+   seeded instances; (c) at full width on the first window of the tree
+   (S=2, 64 frames, seeded random weights): ``fusion_C``, ``img_only``,
+   ``lidar_only`` and
    ``batched_val`` (Sinkhorn) through ``track_kitti_sequences``, a
    ``batched_val`` net with ``score_fusion="avg"`` over sequence 0001
    (no preset averages), and ``cli/track --config full_mmmot
@@ -185,9 +186,9 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    no detection dropped, finite scores, ids that follow the rules across
    windows, one affinity launch a window counted under its K
    (``fused_affinity.k_launches``), and no auction call in a Sinkhorn
-   run.  Each Sinkhorn preset then tracks one window again with its
-   stages timed (load, extract, affinity, sinkhorn_lap, greedy rounding,
-   ids), and that window's association inputs go to the CPU: in float32
+   run.  Each Sinkhorn preset's window runs with its stages timed (load,
+   extract, affinity, sinkhorn_lap, greedy rounding, ids), and its
+   association inputs go to the CPU: in float32
    the GPU's and the CPU's ``solve_sinkhorn`` decisions must be equal; in
    bfloat16 the rows that differ are counted.  Its JSON line
    ``{"solvers": ...}`` precedes the kernel line, which ends with the
@@ -211,13 +212,13 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    configs the kernel does not cover (new/end v1, a 3-layer link head:
    the module path on both devices, no launch), then the noisy revival
    stack at ``max_dets`` 64 (2N = 128 state slots; its N=128 launches
-   counted); (c) at full width on the tree (S=2, window 64, seed-0
-   weights, the auction): ``full_mmmot`` with the first variant of (b),
-   then with the second over the first 64 frames; each with every count
-   set to 0 just before and read just after (one launch a window under
-   its ops, pool and mode), its FPS, auction rounds, a window timed by
-   stage and that window's kernel inputs held against the plain
-   version.  Its JSON line ``{"variants": ...}`` precedes the kernel
+   counted); (c) at full width on the first window of the tree (S=2, 64
+   frames, seed-0 weights, the auction): ``full_mmmot`` with the first
+   variant of (b), then with the second; each with every count set to 0
+   just before and read just after (one launch a window under its ops,
+   pool and mode), the window timed by stage, its auction rounds and
+   its kernel inputs held against the plain version.  Its JSON line
+   ``{"variants": ...}`` precedes the kernel
    line, which ends with the runners' instances and N=128;
 14. the slice past N=128 and data parallelism: (a) the fused kernel at
    N = 144, 192, 256 and 384 (launch 2's instance that streams its lines
@@ -242,8 +243,42 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    tiny and at full width (``full_mmmot`` in float32, a B=4 step split
    2 + 2), then NCCL at world size 1: gathered ids equal to one process's, the step
    within loss rel 1e-4 and grad norm rel 1e-3.  Its JSON line
-   ``{"phase14": ...}`` precedes the kernel line, whose last entry is the
-   streaming instance (N > 128) with its launches in (b).
+   ``{"phase14": ...}`` precedes the kernel line, whose entry after the
+   K and variant instances is the streaming instance (N > 128) with its
+   launches in (b);
+15. the last modules, seed-0 random weights at full width: (a) the int8
+   conv at the space-to-depth stem's shape, conv_0 [32, 112, 112, 12]
+   -> 64 on the stem instance (Kp 108 padded to 128), and the s2d
+   trunk's 13 layers as the trunk runs them (conv_0 and conv_1 at 112²,
+   the pool fused after conv_3, 6, 9 and 12) on 32 real crops of the
+   tree quantised by the s2d trunk calibrated there, then the s2d int8
+   runner's largest chunk (256 crops) through them: each layer exactly
+   equal to its plain version, with kernel, plain, ``torch._int_mm`` and
+   cuDNN bf16 times and the bound, as phase 11 (a); (b) tiny float32
+   runners (first 20 frames, window 8, S=2) CPU against GPU, files
+   byte-equal (or the rows' scores within the float32 tolerance, or the
+   first differing auction call a near tie), for VGG without
+   BatchNorm, without skip pooling, with
+   the s2d stem, with the s2d stem and an int8 trunk (the stem
+   instance launched), and with bfloat16 parameters; (c) ``full_mmmot``
+   at full width through the runner over the first window (S=2, 64
+   frames) under ``stage_timers``, with the s2d stem in bf16, with the
+   s2d stem and its calibrated int8 trunk (13 int8 launches an
+   extraction: 12 main, 1 stem, 4 pooled), and with BatchNorm and skip
+   pooling off: one affinity launch, no detection dropped, finite
+   scores, ids by the rules, the window's kernel output against its
+   plain version, FPS and the split of window 1; (d) the train CLI on
+   ``full_mmmot`` with DropBlock (B=4, 4 steps and the validation)
+   and ``--pretrained-vgg`` on a ``vgg16_bn`` features state dict
+   written with ``torch.save`` (random values at torchvision's names
+   and shapes): every loaded tensor equals the one written, five
+   DropBlock draws a step, a finite loss; (e) the s2d variant exported
+   under a name no preset has, loaded by ``DeployedTracker`` from its
+   manifest's config and served over 20 frames of 0000 (one launch a
+   frame), and a tiny float32 variant artifact giving the same ids on
+   the CPU and the GPU.  Its JSON line ``{"phase15": ...}`` precedes
+   the kernel line, whose last entry is the int8 conv's stem instance
+   at Cin=12.
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -837,6 +872,15 @@ KITTI_F, KITTI_CX, KITTI_CY = 721.5377, 609.5593, 172.854
 CLOUD_POINTS = 16384
 AGREE_FRAMES, AGREE_WINDOW = 20, 8
 RUNNER_WINDOW, RUNNER_S = 64, 2
+# The full-width runners of phases 7, 8, 12 (c), 13 (c) and 15 (c) track
+# the first window of each sequence (its first 64 frames): one window.
+CUT_FRAMES = RUNNER_WINDOW
+
+
+def window_fps(stats) -> float:
+    """Frames a second over every window of a runner's run (with one
+    window, the first: its warm-up included)."""
+    return stats["frames_loaded"] / max(sum(stats["window_s"]), 1e-9)
 
 
 def _car_tracks(rng, T):
@@ -1361,13 +1405,14 @@ def quality_strategy_gate(net, dev, inputs, cfg=None):
 
 
 def quality_window_split(mod, data, out_dir: str):
-    """One window of the noisy runner (the first 64 frames of both
+    """The noisy runner over one window (the first 64 frames of both
     sequences) with its stages timed: extraction, band affinity (the
     fused kernel's two calls), scan (per frame: normalisation, gate,
     new/end heads and the auction; the auction alone as scan_auction)
     and ids (per frame: ids and the ghost pool).  The kernel's outputs on that window's own inputs (the bands,
     B = S*(K+1)*64 at N=32, and the entry band, B = S*(K+1) at N=64)
-    are held against the plain version."""
+    are held against the plain version.  Returns (the runner's stats,
+    times, auction rounds per frame, errors)."""
     import mmmot_tpu_torch.tracker.sequence as seq_mod
     import mmmot_tpu_torch.tracker.tracker as trk_mod
 
@@ -1380,8 +1425,7 @@ def quality_window_split(mod, data, out_dir: str):
     with stage_timers(mod, stages) as (times, seen):
         stats = track_kitti_sequences(
             mod, data, out_dir, window=RUNNER_WINDOW,
-            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
-            evaluate=False)
+            batch_sequences=RUNNER_S, max_frames=CUT_FRAMES)
     if stats["n_windows"] != 1 or len(seen["kernel_calls"]) != 2:
         raise AssertionError(f"split: {stats['n_windows']} windows, "
                              f"{len(seen['kernel_calls'])} kernel calls")
@@ -1401,7 +1445,7 @@ def quality_window_split(mod, data, out_dir: str):
                 a.shape[2]
             del want
     torch.cuda.empty_cache()
-    return times, rounds, errs
+    return stats, times, rounds, errs
 
 
 def calibrate_heads(net, data, dev, frames: int = 16):
@@ -1450,9 +1494,9 @@ def quality_phase(net, dev, smi: str, root: str, tmp: str):
     """Phase 7: the agreement gate; then, with the heads' output biases
     set from the data (``calibrate_heads``; this is the last phase to use
     ``net``), the strategy gate and ``full_mmmot_noisy`` through the
-    runner at full width over the whole tree (window 64, two sequences
-    per call: the ghost pool carried across the window boundary), then
-    one window with its stages timed."""
+    runner at full width over the tree's first window (64 frames, two
+    sequences per call) with its stages timed
+    (``quality_window_split``)."""
     import dataclasses
 
     agreement = quality_agreement(root, dev, tmp)
@@ -1465,12 +1509,11 @@ def quality_phase(net, dev, smi: str, root: str, tmp: str):
                                              M_PTS, N, 6, 19) + (None,),
         "tree_frames": tree_frames})
     mod = TrackingModule(net, cfg.assoc)
-    fused_affinity.launches = auction_lap.rounds = 0
-    stats = track_kitti_sequences(
-        mod, data, f"{tmp}/noisy", window=RUNNER_WINDOW,
-        batch_sequences=RUNNER_S)
+    fused_affinity.launches = 0
+    stats, split, frame_rounds, split_errs = quality_window_split(
+        mod, data, f"{tmp}/noisy")
     launches, rounds = fused_affinity.launches, auction_lap.rounds
-    if launches != 2 * stats["n_windows"] or stats["n_windows"] < 2:
+    if launches != 2 * stats["n_windows"] or stats["n_windows"] != 1:
         raise AssertionError(f"quality runner: {launches} fused-kernel "
                              f"launches for {stats['n_windows']} windows")
     if stats["n_dropped"] != 0:
@@ -1482,16 +1525,11 @@ def quality_phase(net, dev, smi: str, root: str, tmp: str):
                 raise AssertionError(f"{seq}: non-finite {k}")
         check_quality_ids(o["ids"], o["det_mask"], QUALITY_K)
     counts = quality_counts(stats["outputs"], QUALITY_K)
-    split, frame_rounds, split_errs = quality_window_split(
-        mod, data, f"{tmp}/noisy_split")
-    counted = stats["window_s"][1:]
     result = {
         "config": cfg.name, "frames": stats["frames_loaded"],
         "windows": stats["n_windows"], "S": RUNNER_S,
-        "window": RUNNER_WINDOW, "fps": stats["fps"],
-        "frames_counted": stats["total_frames"],
+        "window": RUNNER_WINDOW, "fps_window_1": window_fps(stats),
         "window_ms": [1e3 * x for x in stats["window_s"]],
-        "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
         "auction_rounds": rounds,
         "split_ms": split,
         "split_rounds_per_frame": {
@@ -1507,8 +1545,9 @@ def quality_phase(net, dev, smi: str, root: str, tmp: str):
         "agreement": agreement, "strategy_gate": gate, "heads": heads,
         "gpu": smi}
     stage(f"quality runner: {result['frames']} frames, {result['windows']} "
-          f"windows of {RUNNER_WINDOW} x S={RUNNER_S}, {stats['fps']:.2f} "
-          f"FPS after the first window, windows {result['window_ms']} ms, "
+          f"window of {RUNNER_WINDOW} x S={RUNNER_S}, "
+          f"{result['fps_window_1']:.2f} FPS (window 1, warm-up included, "
+          f"stages timed), windows {result['window_ms']} ms, "
           f"{rounds} auction rounds, split {split} ms, rounds per frame "
           f"{result['split_rounds_per_frame']}, {counts}, {launches} "
           f"launches, MOTA {result['mota_random_weights']:.4f} HOTA "
@@ -1555,13 +1594,15 @@ def check_bias_kernel(net, dev):
 
 
 def lookalike_window_split(mod, data, out_dir: str):
-    """One window of the look-alike runner (the first 64 frames of both
-    sequences) with its stages timed: extraction, per frame the GNN
+    """The look-alike runner over one window (the first 64 frames of
+    both sequences) with its stages timed: extraction, per frame the GNN
     rounds, the motion term, the fused kernel (bias instance), the scan
     (normalisation, gates, new/end heads and the auction; the auction
     alone as scan_auction), the ghost pool (ids) and the whole frame
     step.  Three of the window's 64 kernel calls (B=2 frame pairs at
-    N=64) are held against the plain version on their own inputs."""
+    N=64) are held against the plain version on their own inputs.
+    Returns (the runner's stats, times, auction rounds per frame,
+    errors)."""
     import mmmot_tpu_torch.tracker.sequence as seq_mod
     import mmmot_tpu_torch.tracker.tracker as trk_mod
 
@@ -1576,8 +1617,7 @@ def lookalike_window_split(mod, data, out_dir: str):
     with stage_timers(mod, stages) as (times, seen):
         stats = track_kitti_sequences(
             mod, data, out_dir, window=RUNNER_WINDOW,
-            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
-            evaluate=False)
+            batch_sequences=RUNNER_S, max_frames=CUT_FRAMES)
     calls = seen["kernel_calls"]
     if stats["n_windows"] != 1 or len(calls) != RUNNER_WINDOW:
         raise AssertionError(f"lookalike split: {stats['n_windows']} "
@@ -1597,7 +1637,7 @@ def lookalike_window_split(mod, data, out_dir: str):
                 out, affinity_plain(a, b, mp, mc, params, bias), a, b, mp,
                 mc, params, torch.bfloat16, f"lookalike frame {i}")
     torch.cuda.empty_cache()
-    return times, rounds, errs
+    return stats, times, rounds, errs
 
 
 def lookalike_phase(dev, smi: str, root: str, tmp: str):
@@ -1605,9 +1645,10 @@ def lookalike_phase(dev, smi: str, root: str, tmp: str):
     width (seeded random weights, heads calibrated on the tree as in
     phase 7): the bias instance against its plain version; the
     motion-only model's revival hybrid against its sequential scan; the
-    runner over the whole tree (window 64, two sequences per call: 64
-    bias-instance launches per window, no other); one window with its
-    stages timed.  Returns (result, the kernel report)."""
+    runner over the tree's first window (64 frames, two sequences per
+    call: 64 bias-instance launches, no other) with its stages timed
+    (``lookalike_window_split``).  Returns (result, the kernel
+    report)."""
     import dataclasses
 
     cfg = full_mmmot_lookalike()
@@ -1630,15 +1671,13 @@ def lookalike_phase(dev, smi: str, root: str, tmp: str):
     if mod.hybrid_presolve or mod.parallel_assoc:
         raise AssertionError("lookalike: not the sequential scan")
     fused_affinity.launches = fused_affinity.bias_launches = 0
-    auction_lap.rounds = 0
-    stats = track_kitti_sequences(
-        mod, data, f"{tmp}/lookalike", window=RUNNER_WINDOW,
-        batch_sequences=RUNNER_S)
+    stats, split, frame_rounds, split_errs = lookalike_window_split(
+        mod, data, f"{tmp}/lookalike")
     launches = {"link_bias": fused_affinity.bias_launches,
                 "no_bias": fused_affinity.launches}
     rounds = auction_lap.rounds
     if (launches != {"link_bias": RUNNER_WINDOW * stats["n_windows"],
-                     "no_bias": 0} or stats["n_windows"] < 2):
+                     "no_bias": 0} or stats["n_windows"] != 1):
         raise AssertionError(f"lookalike runner: launches {launches} for "
                              f"{stats['n_windows']} windows")
     if stats["n_dropped"] != 0:
@@ -1650,16 +1689,11 @@ def lookalike_phase(dev, smi: str, root: str, tmp: str):
                 raise AssertionError(f"{seq}: non-finite {k}")
         check_quality_ids(o["ids"], o["det_mask"], QUALITY_K)
     counts = quality_counts(stats["outputs"], QUALITY_K)
-    split, frame_rounds, split_errs = lookalike_window_split(
-        mod, data, f"{tmp}/lookalike_split")
-    counted = stats["window_s"][1:]
     result = {
         "config": cfg.name, "frames": stats["frames_loaded"],
         "windows": stats["n_windows"], "S": RUNNER_S,
-        "window": RUNNER_WINDOW, "fps": stats["fps"],
-        "frames_counted": stats["total_frames"],
+        "window": RUNNER_WINDOW, "fps_window_1": window_fps(stats),
         "window_ms": [1e3 * x for x in stats["window_s"]],
-        "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
         "auction_rounds": rounds, "launches": launches,
         "launches_per_window": launches["link_bias"] / stats["n_windows"],
         "split_ms": split,
@@ -1675,9 +1709,11 @@ def lookalike_phase(dev, smi: str, root: str, tmp: str):
         "agreement": agreement, "motion_strategy_gate": gate,
         "heads": heads, "gpu": smi}
     stage(f"lookalike runner: {result['frames']} frames, "
-          f"{result['windows']} windows of {RUNNER_WINDOW} x S={RUNNER_S}, "
-          f"{stats['fps']:.2f} FPS after the first window, windows "
-          f"{result['window_ms']} ms, {rounds} auction rounds, launches "
+          f"{result['windows']} window of {RUNNER_WINDOW} x S={RUNNER_S}, "
+          f"{result['fps_window_1']:.2f} FPS (window 1, warm-up included, "
+          f"stages timed), windows {result['window_ms']} ms, {rounds} "
+          f"auction rounds, "
+          f"launches "
           f"{launches}, split {split} ms, rounds per frame "
           f"{result['split_rounds_per_frame']}, {counts}, MOTA "
           f"{result['mota_random_weights']:.4f} HOTA "
@@ -1748,7 +1784,8 @@ def patched(obj, name: str, fn):
 
 def train_cli_run(cfg, label: str, root: str, tmp: str, warmup: int,
                   steps: int, smi: str, split_steps: int = 0,
-                  profile: bool = False, track: bool = False):
+                  profile: bool = False, track: bool = False,
+                  extra_args=(), first_step=None):
     """(c), (d), (e): the train CLI (``cli/train.run``) on ``cfg`` over
     the tree, on the GPU: one epoch of ``warmup + steps + split_steps``
     steps (one more under torch.profiler with ``profile``) on
@@ -1765,7 +1802,8 @@ def train_cli_run(cfg, label: str, root: str, tmp: str, warmup: int,
     same); after step 2 every parameter with a gradient has moved.  The
     validation must launch the kernel.  With ``track``, ``cli/track
     --load-path`` on the best checkpoint then writes the validation's
-    files again."""
+    files again.  ``extra_args`` go to the CLI; ``first_step(state)``
+    (if given) sees the train state before the first step runs."""
     import dataclasses
 
     import mmmot_tpu_torch.train.trainer as trainer_mod
@@ -1786,7 +1824,7 @@ def train_cli_run(cfg, label: str, root: str, tmp: str, warmup: int,
         "--config", cfg.name, "--steps-per-epoch", str(n_steps),
         "--val-every", "1", "--val-frames", str(val_frames),
         "--val-window", str(val_window), "--result-path", res,
-        "--log-dir", logs])
+        "--log-dir", logs, *extra_args])
     real_step, real_sample = trainer_mod.train_step, KittiPairLoader.sample
     records, split = [], {}
     rec = {"launches": 0, "decode_s": 0.0, "end": None, "peak": 0,
@@ -1809,6 +1847,8 @@ def train_cli_run(cfg, label: str, root: str, tmp: str, warmup: int,
         if k == 0:
             rec["start"] = {n: p.detach().clone()
                             for n, p in state.net.named_parameters()}
+            if first_step is not None:
+                first_step(state)
         before = kernel_launches()
         t = time.perf_counter()
         if k < warmup + steps:
@@ -1880,6 +1920,7 @@ def train_cli_run(cfg, label: str, root: str, tmp: str, warmup: int,
         return float(np.mean([r[key] for r in rows]))
 
     out = {"config": cfg.name, "batch_pairs": B,
+           "pretrained_vgg": result.get("pretrained_vgg"),
            "compact_capacity": cfg.train.compact_capacity,
            "remat": cfg.model.remat, "steps": n_steps, "timed_steps": steps,
            "step_ms": [r["ms"] for r in timed], "step_ms_mean": mean("ms"),
@@ -2642,15 +2683,20 @@ def int8_kernel_check(quant, crops):
     """(a) VGG16's 13 conv shapes at 224², on the 32 real crops quantised
     by the calibrated tree: each layer's own input map through
     ``int8_layer_check`` unpooled, with the library yardsticks; then each
-    conv that a pool follows (conv_1, 3, 6, 9, 12) again with the pool
-    fused, whose output is the next layer's input."""
-    from mmmot_tpu_torch.models.quantize import quantize_input
+    conv that a pool follows (conv_1, 3, 6, 9, 12; with the
+    space-to-depth stem, which runs conv_0 and conv_1 at 112² on its
+    relayout, conv_3, 6, 9, 12) again with the pool fused, whose output
+    is the next layer's input."""
+    from mmmot_tpu_torch.models.quantize import (quantize_input,
+                                                 space_to_depth)
 
     xq = quantize_input(quant, crops)
     layers, fused = [], []
     ops = quant.ops
     with torch.inference_mode():
         for i, op in enumerate(ops):
+            if op[0] == "s2d":
+                xq = space_to_depth(xq).contiguous()
             if op[0] != "conv":
                 continue
             args = quant.layer(op[1])
@@ -2693,7 +2739,8 @@ def int8_chunk_check(quant, chunk):
     each layer's kernel output exactly equal to its plain version on the
     chunk's own maps; the kernel's, the plain version's and the library
     yardsticks' device times and the bound at that shape."""
-    from mmmot_tpu_torch.models.quantize import quantize_input
+    from mmmot_tpu_torch.models.quantize import (quantize_input,
+                                                 space_to_depth)
 
     crops = chunk["crops"]
     layers = []
@@ -2701,6 +2748,8 @@ def int8_chunk_check(quant, chunk):
     with torch.inference_mode():
         xq = quantize_input(quant, crops)
         for i, op in enumerate(ops):
+            if op[0] == "s2d":
+                xq = space_to_depth(xq).contiguous()
             if op[0] != "conv":
                 continue
             args = quant.layer(op[1])
@@ -3266,13 +3315,13 @@ def check_runner_run(stats, what: str, K: int, launches: dict,
 def sinkhorn_runner(name: str, root: str, tmp: str, dev, split=True,
                     sequences=None, **model):
     """Preset ``name`` at full width through ``track_kitti_sequences``
-    (S=2, window 64; ``model`` replaces fields of its model config) with
-    every count set to 0 just before and read just after:
-    ``check_runner_run`` and no auction call.  With ``split``, one
-    window (the first 64 frames of each sequence) again under
-    ``stage_timers`` (load, extract, affinity, sinkhorn_lap, greedy
-    rounding, ids, window) and its association inputs held CPU against
-    GPU (``sinkhorn_inputs_check``)."""
+    (S=2, the first window of 64 frames; ``model`` replaces fields of
+    its model config) with every count set to 0 just before and read
+    just after: ``check_runner_run`` and no auction call.  With
+    ``split``, that window runs under ``stage_timers`` (load, extract,
+    affinity, sinkhorn_lap, greedy rounding, ids, window) and its
+    association inputs are held CPU against GPU
+    (``sinkhorn_inputs_check``)."""
     import dataclasses
 
     import mmmot_tpu_torch.assoc.sinkhorn as sk_mod
@@ -3286,14 +3335,30 @@ def sinkhorn_runner(name: str, root: str, tmp: str, dev, split=True,
     K = len(net.score_branches)
     mod = TrackingModule(net, cfg.assoc)
     data = dataclasses.replace(cfg.data, root=root)
-    calls = {}
+    calls, seen = {}, {}
+    assoc = seq_mod.associate
+
+    def captured(*args, **kw):
+        seen["args"] = args[:5]
+        return assoc(*args, **kw)
+
+    stages = {"extract": (seq_mod, "extract_frames_batched"),
+              "affinity": (mod, "affinity"),
+              "sinkhorn_lap": (sk_mod, "sinkhorn_lap"),
+              "greedy": (sk_mod, "greedy_matching"),
+              "ids": (seq_mod, "propagate_ids")}
     reset_launches()
     auction_lap.rounds = 0
-    with counted_calls(solve_mod, "solve_auction", calls), \
-            counted_calls(sk_mod, "sinkhorn_lap", calls):
+    with contextlib.ExitStack() as timed:
+        if split:
+            timed.enter_context(patched(seq_mod, "associate", captured))
+            times, _ = timed.enter_context(stage_timers(mod, stages))
+        timed.enter_context(counted_calls(solve_mod, "solve_auction", calls))
+        timed.enter_context(counted_calls(sk_mod, "sinkhorn_lap", calls))
         stats = track_kitti_sequences(
             mod, data, f"{tmp}/{name}", window=RUNNER_WINDOW,
-            batch_sequences=RUNNER_S, sequences=sequences, evaluate=False)
+            batch_sequences=RUNNER_S, sequences=sequences,
+            max_frames=CUT_FRAMES, evaluate=False)
     launches = dict(fused_affinity.k_launches)
     avg_launches = fused_affinity.avg_launches
     if calls.get("solve_auction") or auction_lap.rounds:
@@ -3303,12 +3368,10 @@ def sinkhorn_runner(name: str, root: str, tmp: str, dev, split=True,
         raise AssertionError(f"{name}: {calls} for {stats['n_windows']} "
                              "windows")
     unassigned = check_runner_run(stats, name, K, launches, True)
-    counted = stats["window_s"][1:]
     result = {"frames": stats["frames_loaded"], "windows": stats["n_windows"],
               "K": K, "score_fusion": net.cfg.score_fusion,
-              "fps": stats["fps"], "frames_counted": stats["total_frames"],
+              "fps_window_1": window_fps(stats),
               "window_ms": [1e3 * x for x in stats["window_s"]],
-              "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
               "load_s": stats["load_s"], "launches_by_k": launches,
               "avg_launches": avg_launches, "calls": calls,
               "auction_rounds": auction_lap.rounds,
@@ -3316,32 +3379,16 @@ def sinkhorn_runner(name: str, root: str, tmp: str, dev, split=True,
                                 for o in stats["outputs"].values()),
               "unassigned_by_rounding": unassigned}
     if split:
-        seen = {}
-        assoc = seq_mod.associate
-
-        def captured(*args, **kw):
-            seen["args"] = args[:5]
-            return assoc(*args, **kw)
-
-        stages = {"extract": (seq_mod, "extract_frames_batched"),
-                  "affinity": (mod, "affinity"),
-                  "sinkhorn_lap": (sk_mod, "sinkhorn_lap"),
-                  "greedy": (sk_mod, "greedy_matching"),
-                  "ids": (seq_mod, "propagate_ids")}
-        with patched(seq_mod, "associate", captured), \
-                stage_timers(mod, stages) as (times, _):
-            one = track_kitti_sequences(
-                mod, data, f"{tmp}/{name}_split", window=RUNNER_WINDOW,
-                batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
-                evaluate=False)
-        times["load"] = one["load_s"] * 1e3
-        times["window"] = one["window_s"][0] * 1e3
+        times["load"] = stats["load_s"] * 1e3
+        times["window"] = stats["window_s"][0] * 1e3
         result["split_ms"] = times
         result["gpu_vs_cpu_sinkhorn"] = sinkhorn_inputs_check(
             seen["args"], cfg.assoc)
     stage(f"solvers runner {name}{model or ''}: {result['frames']} frames, "
-          f"{result['windows']} windows, K={K}, {stats['fps']:.1f} FPS "
-          f"after the first window, windows {result['window_ms']} ms, "
+          f"{result['windows']} window, K={K}, "
+          f"{result['fps_window_1']:.1f} FPS (window 1, warm-up included"
+          f"{', stages timed' if split else ''}), windows "
+          f"{result['window_ms']} ms, "
           f"launches by K {launches} (avg {avg_launches}), calls {calls}, "
           f"{unassigned} of {result['detections']} detections left "
           "without an id by the greedy rounding"
@@ -3365,19 +3412,19 @@ def dead_sensor_cli(root: str, tmp: str, weights: str, dead: str):
                         "--weights", weights, "--dead-sensor", dead,
                         "--result-path", f"{tmp}/dead_{dead}",
                         "--batch-sequences", str(RUNNER_S), "--window",
-                        str(RUNNER_WINDOW), "--no-eval"])
+                        str(RUNNER_WINDOW), "--frames", str(CUT_FRAMES),
+                        "--no-eval"])
     launches = dict(fused_affinity.k_launches)
     check_runner_run(stats, f"dead {dead}", 2, launches)
-    counted = stats["window_s"][1:]
     result = {"frames": stats["frames_loaded"], "windows": stats["n_windows"],
-              "fps": stats["fps"],
+              "fps_window_1": window_fps(stats),
               "window_ms": [1e3 * x for x in stats["window_s"]],
-              "ms_per_window": 1e3 * sum(counted) / max(1, len(counted)),
               "launches_by_k": launches,
               "auction_rounds": auction_lap.rounds}
     stage(f"solvers cli/track --dead-sensor {dead}: {result['frames']} "
-          f"frames, {result['windows']} windows, {stats['fps']:.1f} FPS "
-          f"after the first window, windows {result['window_ms']} ms, "
+          f"frames, {result['windows']} window, "
+          f"{result['fps_window_1']:.1f} FPS (window 1, warm-up included), "
+          f"windows {result['window_ms']} ms, "
           f"launches by K {launches}, {auction_lap.rounds} auction rounds")
     return result
 
@@ -3633,15 +3680,15 @@ def variant_agreement(root: str, dev, tmp: str):
     return out
 
 
-def variant_runner(name: str, root: str, tmp: str, dev, max_frames=None):
+def variant_runner(name: str, root: str, tmp: str, dev):
     """``full_mmmot`` with ``VARIANTS[name]`` at full width through
-    ``track_kitti_sequences`` (S=2, window 64, the auction) with every
-    count set to 0 just before and read just after: no detection dropped,
-    finite scores, ids by the rules, one launch a window counted under
-    its instance (ops, pool, mode).  Then one window again under
-    ``stage_timers`` (load, extract, affinity, kernel, auction, ids,
-    window), and the kernel's output on that window's own inputs held
-    against its plain version."""
+    ``track_kitti_sequences`` (S=2, the first window of 64 frames, the
+    auction) under ``stage_timers`` (load, extract, affinity, kernel,
+    auction, ids, window), with every count set to 0 just before and
+    read just after: no detection dropped, finite scores, ids by the
+    rules, one launch a window counted under its instance (ops, pool,
+    mode); the kernel's output on that window's own inputs held against
+    its plain version."""
     import dataclasses
 
     from mmmot_tpu_torch.kernels.affinity import reset_launches
@@ -3654,9 +3701,11 @@ def variant_runner(name: str, root: str, tmp: str, dev, max_frames=None):
     ops, pool, mode = instance_of(model)
     reset_launches()
     auction_lap.rounds = 0
-    stats = track_kitti_sequences(
-        mod, data, f"{tmp}/{name}", window=RUNNER_WINDOW,
-        batch_sequences=RUNNER_S, max_frames=max_frames, evaluate=False)
+    with stage_timers(mod) as (times, seen):
+        stats = track_kitti_sequences(
+            mod, data, f"{tmp}/{name}", window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=CUT_FRAMES,
+            evaluate=False)
     launches = {"ops": fused_affinity.op_launches[ops],
                 "pool": fused_affinity.pool_launches[pool],
                 "mode": fused_affinity.mode_launches[mode],
@@ -3667,15 +3716,8 @@ def variant_runner(name: str, root: str, tmp: str, dev, max_frames=None):
     if {launches[k] for k in ("ops", "pool", "mode")} != {stats["n_windows"]}:
         raise AssertionError(f"{name}: launches {launches} for "
                              f"{stats['n_windows']} windows")
-    counted = stats["window_s"][1:]
-    auction_lap.rounds = 0
-    with stage_timers(mod) as (times, seen):
-        one = track_kitti_sequences(
-            mod, data, f"{tmp}/{name}_split", window=RUNNER_WINDOW,
-            batch_sequences=RUNNER_S, max_frames=RUNNER_WINDOW,
-            evaluate=False)
-    times["load"] = one["load_s"] * 1e3
-    times["window"] = one["window_s"][0] * 1e3
+    times["load"] = stats["load_s"] * 1e3
+    times["window"] = stats["window_s"][0] * 1e3
     a, b, mp, mc, params, bias = seen["args"]
     with torch.inference_mode():
         want = affinity_plain(a, b, mp, mc, params, bias, **seen["kw"])
@@ -3684,26 +3726,20 @@ def variant_runner(name: str, root: str, tmp: str, dev, max_frames=None):
     result = {"instance": {"ops": list(ops), "pool": pool, "mode": mode},
               "variant": VARIANTS[name], "K": K,
               "frames": stats["frames_loaded"], "windows": stats["n_windows"],
-              "fps": stats["fps"], "frames_counted": stats["total_frames"],
-              "fps_every_window": stats["frames_loaded"]
-              / sum(stats["window_s"]),
+              "fps_window_1": window_fps(stats),
               "window_ms": [1e3 * x for x in stats["window_s"]],
-              "ms_per_window": (1e3 * sum(counted) / len(counted)
-                                if counted else None),
               "load_s": stats["load_s"], "launches": launches,
               "auction_rounds": rounds, "split_ms": times,
-              "split_auction_rounds": auction_lap.rounds,
               "split_kernel_vs_plain_max_err": errs,
               "split_frame_pairs": int(a.shape[0]),
               "detections": sum(int(o["det_mask"].sum())
                                 for o in stats["outputs"].values())}
     stage(f"variant runner {name} {result['instance']}: {result['frames']} "
-          f"frames, {result['windows']} windows, {stats['fps']:.1f} FPS "
-          f"after the first window ({result['fps_every_window']:.1f} over "
-          f"every window), windows {result['window_ms']} ms, "
+          f"frames, {result['windows']} window, "
+          f"{result['fps_window_1']:.1f} FPS (window 1, warm-up included, "
+          f"stages timed), windows {result['window_ms']} ms, "
           f"{rounds} auction rounds, launches {launches}, split "
-          f"{times} ms ({auction_lap.rounds} rounds), window kernel vs "
-          f"plain {errs}")
+          f"{times} ms, window kernel vs plain {errs}")
     del net, mod
     torch.cuda.empty_cache()
     return result
@@ -3714,9 +3750,8 @@ def variants_phase(dev, smi: str, root: str, tmp: str):
     and the ``{"variants": ...}`` result."""
     kern = check_variant_instances(dev)
     agreement = variant_agreement(root, dev, tmp)
-    runs = {"A_tnet_mul": variant_runner("A_tnet_mul", root, tmp, dev),
-            "B_all_ops": variant_runner("B_all_ops", root, tmp, dev,
-                                        max_frames=RUNNER_WINDOW)}
+    runs = {name: variant_runner(name, root, tmp, dev)
+            for name in ("A_tnet_mul", "B_all_ops")}
     return kern, {"agreement": agreement, "runs": runs, "gpu": smi}
 
 
@@ -4179,6 +4214,410 @@ def wide_entry(kern, launches: int):
                   for dt in (torch.bfloat16, torch.float32)}}
 
 
+# Phase 15: the last modules.  (a) the int8 conv at the space-to-depth
+# stem's shape (conv_0 [32, 112, 112, 12] -> 64, the stem instance) and
+# the s2d trunk's 13 layers as it runs them, then the s2d int8 runner's
+# largest chunk; (b) tiny float32 runners of the VGG variants, CPU
+# against GPU; (c) full-width variant runners over the first window;
+# (d) the train CLI with DropBlock and --pretrained-vgg; (e) a variant
+# served from its artifact.
+S2D_CROPS = 32
+# The s2d int8 trunk's launches an extraction: conv_0 on the stem
+# instance (Cin 12), conv_1 to conv_12 on the main one, the pool fused
+# after conv_3, 6, 9 and 12 (the s2d relayout replaces the first pool).
+S2D_INT8_BY_KIND = {"launches": 13, "main_launches": 12,
+                    "stem_launches": 1, "pool_launches": 4}
+# (label, appearance fields, model fields, int8 trunk)
+P15_TINY = (("no_bn", {"batch_norm": False}, {}, False),
+            ("last_stage", {"skip_pool": False}, {}, False),
+            ("s2d", {"s2d_stem": True}, {}, False),
+            ("s2d_int8", {"s2d_stem": True}, {}, True),
+            ("bf16_params", {}, {"param_dtype": "bfloat16"}, False))
+P15_TRAIN_STEPS = 3
+P15_SERVE_FRAMES = 20
+# torchvision's vgg16_bn ``features``: the conv indices (BatchNorm at
+# index + 1), and the VGG16 widths.
+VGG16_FEATURES = (0, 3, 7, 10, 14, 17, 20, 24, 27, 30, 34, 37, 40)
+VGG16_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512,
+                512)
+
+
+def variant_config(cfg, name=None, model=None, **appearance):
+    """``cfg`` with fields of its appearance section (and of its model
+    section, ``model``) replaced, named ``name``."""
+    import dataclasses
+
+    m = dataclasses.replace(cfg.model, appearance=dataclasses.replace(
+        cfg.model.appearance, **appearance), **(model or {}))
+    return dataclasses.replace(cfg, name=name or cfg.name, model=m)
+
+
+def p15_tie_check(tmp: str, tag: str, calls):
+    """Where a tiny variant's CPU and GPU files differ: the same rows with
+    scores within the float32 tolerance (``results_match``), or else the
+    first differing auction call a near tie (``auction_tie_report``)."""
+    import os
+
+    a, b = (result_files(os.path.join(tmp, f"{tag}_agree_{d}"))
+            for d in ("cpu", "cuda"))
+    try:
+        return {"score_rows": results_match(a, b, tag)}
+    except AssertionError as e:
+        stage(f"{tag}: {e}")
+        return auction_tie_report(calls["cpu"], calls["cuda"], tag)
+
+
+def p15_agreement(root: str, dev, tmp: str):
+    """(b) ``runner_agreement`` on tiny float32 nets of the variants,
+    seeded as ``agreement_net`` (files byte-equal, or where they differ
+    ``p15_tie_check``); the s2d int8 trunk calibrated once on the tree on
+    the CPU and moved to the GPU, whose run must launch the stem
+    instance."""
+    import copy
+    import dataclasses
+
+    from mmmot_tpu_torch.kernels import int8_conv
+    from mmmot_tpu_torch.models.quantize import quantize_for_inference
+
+    out = {}
+    for label, app, model, int8 in P15_TINY:
+        cfg = variant_config(tiny_debug(), model=model, **app)
+        nets = {}
+        for device in ("cpu", dev):
+            nets[device] = init_random_(TrackingNet(cfg.model,
+                                                    device=device), 7)
+            with torch.no_grad():
+                for head in (nets[device].new_end.new_mlp,
+                             nets[device].new_end.end_mlp):
+                    head.dense_1.bias.fill_(-3.0)
+        if int8:
+            quantize_for_inference(nets["cpu"], dataclasses.replace(
+                cfg.data, root=root))
+            nets[dev].quant_int8 = copy.deepcopy(
+                nets["cpu"].quant_int8).to(dev)
+        int8_conv.reset_launches()
+        tag = f"p15_{label}"
+        with auction_inputs() as calls:
+            out[label] = runner_agreement(
+                root, dev, tmp, nets, tag, tie_check=lambda: p15_tie_check(
+                    tmp, tag, calls))
+        out[label]["int8_launches"] = int8_conv.launch_counts()
+        if int8 and not out[label]["int8_launches"]["stem_launches"]:
+            raise AssertionError(f"p15 {label}: no stem instance launch")
+    return out
+
+
+def p15_runner(net, data, tmp: str, label: str):
+    """(c) ``net`` through ``track_kitti_sequences`` over the first
+    window (S=2, 64 frames) under ``stage_timers``, with every count set
+    to 0 just before and read just after: one affinity launch, the int8
+    conv's launches by instance (13 an extraction with an s2d int8
+    trunk, none without one), no detection dropped, finite scores, ids
+    by the rules; the window's kernel output held against its plain
+    version.  With an int8 trunk the largest extraction chunk is kept
+    for ``int8_chunk_check``."""
+    from mmmot_tpu_torch.kernels import int8_conv
+    from mmmot_tpu_torch.models import tracking_net
+
+    mod = TrackingModule(net)
+    calls, chunk = [0], {}
+    extract = TrackingNet.extract
+    apply = tracking_net.quantized_appearance_apply
+
+    def counted(self, *args, **kw):
+        calls[0] += 1
+        return extract(self, *args, **kw)
+
+    def captured(quant, appear_net, crops, mask, dtype):
+        x = crops.reshape((-1,) + tuple(crops.shape[-3:]))
+        if len(x) > len(chunk.get("crops", ())):
+            chunk.update(crops=x.clone(), mask=mask.reshape(-1).clone(),
+                         quant=quant)
+        return apply(quant, appear_net, crops, mask, dtype)
+
+    fused_affinity.launches = 0
+    int8_conv.reset_launches()
+    auction_lap.rounds = 0
+    with patched(TrackingNet, "extract", counted), \
+            patched(tracking_net, "quantized_appearance_apply", captured), \
+            stage_timers(mod) as (times, seen):
+        stats = track_kitti_sequences(
+            mod, data, f"{tmp}/p15_{label}", window=RUNNER_WINDOW,
+            batch_sequences=RUNNER_S, max_frames=CUT_FRAMES, evaluate=False)
+    counts, launches = int8_conv.launch_counts(), fused_affinity.launches
+    rounds = auction_lap.rounds
+    int8 = net.quant_int8 is not None
+    want = {k: v * calls[0] * int8 for k, v in S2D_INT8_BY_KIND.items()}
+    if launches != stats["n_windows"] or stats["n_windows"] != 1 \
+            or counts != want or not calls[0]:
+        raise AssertionError(f"p15 {label}: {launches} affinity launches "
+                             f"for {stats['n_windows']} windows, int8 "
+                             f"{counts} for {calls[0]} extractions")
+    if stats["n_dropped"] != 0:
+        raise AssertionError(f"p15 {label}: n_dropped {stats['n_dropped']}")
+    for seq, o in stats["outputs"].items():
+        if not np.isfinite(o["det_score"]).all():
+            raise AssertionError(f"p15 {label} {seq}: non-finite scores")
+        check_ids(torch.as_tensor(o["ids"]), torch.as_tensor(o["det_mask"]))
+    a, b, mp, mc, params, _ = seen["args"]
+    with torch.inference_mode():
+        errs = check_agreement(seen["out"], affinity_plain(
+            a, b, mp, mc, params), a, b, mp, mc, params, torch.bfloat16,
+            f"p15 {label} window")
+    times["load"] = stats["load_s"] * 1e3
+    times["window"] = stats["window_s"][0] * 1e3
+    result = {"frames": stats["frames_loaded"], "windows": stats["n_windows"],
+              "S": RUNNER_S, "fps_window_1": window_fps(stats),
+              "window_ms": [1e3 * x for x in stats["window_s"]],
+              "split_ms": times, "extractions": calls[0],
+              "launches": {"fused_affinity": launches,
+                           "int8_conv3x3_requant": counts["launches"]},
+              "int8_launches_by_kind": counts, "auction_rounds": rounds,
+              "window_kernel_vs_plain_max_err": errs,
+              "detections": sum(int(o["det_mask"].sum())
+                                for o in stats["outputs"].values())}
+    stage(f"p15 runner {label}: {result['frames']} frames, 1 window of "
+          f"{RUNNER_WINDOW} x S={RUNNER_S}, {result['fps_window_1']:.1f} FPS "
+          f"(window 1, warm-up included, stages timed), split of window 1 "
+          f"{times} ms, launches {result['launches']}, int8 by instance "
+          f"{counts} over {calls[0]} extractions, {rounds} auction rounds, "
+          f"window kernel vs plain {errs}")
+    return result, chunk
+
+
+def p15_serving(net, cfg, root: str, tmp: str, dev):
+    """(e) ``export_serve_step`` of ``net`` under ``cfg`` (a name no
+    preset has), ``DeployedTracker.load`` from the manifest's own config,
+    then 20 frames of sequence 0000 (full scans): one affinity launch a
+    frame, finite scores, ids by the rules, latency p50/p90 after 3 warm
+    frames."""
+    import dataclasses
+
+    from mmmot_tpu_torch.data.kitti_dataset import KittiTrackingDataset
+    from mmmot_tpu_torch.deploy import DeployedTracker, export_serve_step
+
+    art = f"{tmp}/p15_{cfg.name}"
+    t = time.perf_counter()
+    export_serve_step(art, cfg, TrackingModule(net, cfg.assoc),
+                      (KITTI_H, KITTI_W), CLOUD_POINTS)
+    trk = DeployedTracker.load(art, device=dev)
+    load_s = time.perf_counter() - t
+    if trk.module.net.cfg != cfg.model or trk.manifest["config"] != cfg.name:
+        raise AssertionError(f"p15 serving: the artifact loaded "
+                             f"{trk.manifest['config']}, not {cfg.name}")
+    data = dataclasses.replace(cfg.data, root=root, cloud_filter="none")
+    a = KittiTrackingDataset(data, max_cloud_points=CLOUD_POINTS
+                             ).load_sequence("0000",
+                                             max_frames=P15_SERVE_FRAMES)
+    frames = tree_frames(a)
+    ids = np.full(a.det_mask.shape, -1, np.int64)
+    ms = []
+    fused_affinity.launches = 0
+    for t, (image, cloud, boxes, dm, proj) in enumerate(frames):
+        t0 = time.perf_counter()
+        got, scores = trk.step(image, cloud, boxes[dm], proj)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(scores).all():
+            raise AssertionError(f"p15 serve frame {t}: non-finite scores")
+        ids[t, :len(got)] = got
+    if fused_affinity.launches != len(frames):
+        raise AssertionError(f"p15 serving: {fused_affinity.launches} "
+                             f"launches for {len(frames)} frames")
+    check_ids(torch.as_tensor(ids), torch.as_tensor(a.det_mask))
+    lat = percentiles(ms[SERVE_WARM:])
+    stage(f"p15 serving {cfg.name}: export + load {load_s:.1f} s, "
+          f"{len(frames)} frames through DeployedTracker, latency after "
+          f"{SERVE_WARM} warm frames {lat} ms, 1 launch a frame")
+    return {"config": cfg.name, "export_and_load_s": load_s,
+            "frames": len(frames), "latency_ms": lat,
+            "latency_first_ms": ms[:SERVE_WARM],
+            "launches": fused_affinity.launches}
+
+
+def p15_serving_agreement(tmp: str, dev):
+    """(e) A tiny float32 variant (s2d, no BatchNorm) exported on the
+    CPU under a name no preset has, served by ``DeployedTracker`` on the
+    CPU and on the GPU over a synthetic scene: the same ids."""
+    cfg = variant_config(tiny_debug(), "tiny_s2d_no_bn", s2d_stem=True,
+                         batch_norm=False)
+    net = init_random_(TrackingNet(cfg.model, device="cpu"), 7)
+    with torch.no_grad():
+        for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+            head.dense_1.bias.fill_(-3.0)
+    from mmmot_tpu_torch.deploy import DeployedTracker, export_serve_step
+
+    art = f"{tmp}/p15_tiny_variant"
+    export_serve_step(art, cfg, TrackingModule(net), (96, 320), 512)
+    gen = torch.Generator().manual_seed(11)
+    im, cl, bx, dm, pj = synthetic_frames(gen, "cpu", 6, 96, 320, 512,
+                                          cfg.data.max_dets, 2, 9)
+    ids = {}
+    for device in ("cpu", dev):
+        trk = DeployedTracker.load(art, device=device)
+        with f32_parity():
+            ids[device] = [trk.step(im[t].numpy(), cl[t].numpy(),
+                                    bx[t][dm[t]].numpy(), pj.numpy())[0]
+                           for t in range(len(im))]
+    if ids["cpu"] != ids[dev]:
+        raise AssertionError(f"p15 tiny variant artifact: ids {ids['cpu']} "
+                             f"on the CPU, {ids[dev]} on the GPU")
+    stage(f"p15 serving agreement: tiny {cfg.name} artifact, ids equal on "
+          f"CPU and GPU over {len(im)} frames")
+    return {"config": cfg.name, "frames": len(im), "ids": ids["cpu"]}
+
+
+def write_vgg16_bn(path: str, seed: int = 5):
+    """A torchvision ``vgg16_bn`` features state dict (its names, shapes
+    and dtypes; random values from ``seed``) written with
+    ``torch.save``."""
+    gen = torch.Generator().manual_seed(seed)
+    sd, cin = {}, 3
+    for idx, c in zip(VGG16_FEATURES, VGG16_WIDTHS):
+        sd[f"features.{idx}.weight"] = torch.randn(
+            c, cin, 3, 3, generator=gen) * (2.0 / (9 * cin)) ** 0.5
+        sd[f"features.{idx}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        bn = f"features.{idx + 1}"
+        sd[f"{bn}.weight"] = 0.8 + 0.4 * torch.rand(c, generator=gen)
+        sd[f"{bn}.bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{bn}.running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[f"{bn}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+        cin = c
+    torch.save(sd, path)
+    return sd
+
+
+def p15_training(root: str, tmp: str, smi: str):
+    """(d) The train CLI at full width (``full_mmmot``, B=4) with
+    DropBlock on every stage map and ``--pretrained-vgg`` on a written
+    ``vgg16_bn`` features state dict: before the first step every trunk
+    tensor equals the one written; each step draws the five DropBlock
+    masks (counted) and keeps a finite loss (``train_cli_run``)."""
+    from mmmot_tpu_torch.models.layers import DropBlock2D
+
+    pth = f"{tmp}/vgg16_bn.pth"
+    sd = write_vgg16_bn(pth)
+    checked = []
+
+    def first_step(state):
+        own = state.net.state_dict()
+        for ci, idx in enumerate(VGG16_FEATURES):
+            for mine, theirs in ((f"conv_{ci}", idx), (f"bn_{ci}", idx + 1)):
+                for leaf in ("weight", "bias", "running_mean",
+                             "running_var"):
+                    key = f"features.{theirs}.{leaf}"
+                    if key not in sd:
+                        continue
+                    got = own[f"appear_net.backbone.{mine}.{leaf}"]
+                    if not torch.equal(got.cpu(), sd[key]):
+                        raise AssertionError(f"p15 pretrained: {key} not "
+                                             "loaded as written")
+                    checked.append(key)
+
+    draws = [0]
+    draw = DropBlock2D.draw
+
+    def counted(self, *a, **kw):
+        draws[0] += 1
+        return draw(self, *a, **kw)
+
+    cfg = variant_config(full_mmmot(), dropblock=True)
+    with patched(DropBlock2D, "draw", counted):
+        out = train_cli_run(cfg, "p15_dropblock", root, tmp, 1,
+                            P15_TRAIN_STEPS, smi,
+                            extra_args=("--pretrained-vgg", pth),
+                            first_step=first_step)
+    n_steps = 1 + P15_TRAIN_STEPS
+    if len(checked) != 6 * len(VGG16_FEATURES) or draws[0] != 5 * n_steps:
+        raise AssertionError(f"p15 training: {len(checked)} tensors checked, "
+                             f"{draws[0]} DropBlock draws in {n_steps} steps")
+    if out["pretrained_vgg"]["unexpected_unused"]:
+        raise AssertionError(f"p15 pretrained: {out['pretrained_vgg']}")
+    out["pretrained_tensors_checked"] = len(checked)
+    out["dropblock_draws"] = draws[0]
+    del out["pretrained_vgg"]["converted"]
+    return out
+
+
+def phase15(dev, smi: str, root: str, tmp: str):
+    """Phase 15: (a)-(e) above; returns the stem layer's report and the
+    ``{"phase15": ...}`` result."""
+    import dataclasses
+
+    from mmmot_tpu_torch.models.quantize import quantize_for_inference
+
+    t0 = time.perf_counter()
+    out = {"agreement": p15_agreement(root, dev, tmp)}
+    s2d = variant_config(full_mmmot(), "full_mmmot_s2d", s2d_stem=True)
+    data = dataclasses.replace(s2d.data, root=root)
+    net = init_random_(TrackingNet(s2d.model, device=dev), 0)
+    quantize_for_inference(net, data)
+    quant = net.quant_int8
+    crops = real_crops(root, dev, S2D_CROPS, s2d.model.appearance.crop_size)
+    kernel = int8_kernel_check(quant, crops)
+    del crops
+    torch.cuda.empty_cache()
+    stem = kernel["layers"][0]
+    h, w = s2d.model.appearance.crop_size
+    if (stem["layer"], stem["n"], stem["hw"], stem["cin"], stem["cout"],
+            stem["plan"]["instance"]) != (
+                "conv_0", S2D_CROPS, [h // 2, w // 2], 12,
+                quant.layer(0)[0].shape[0], "stem"):
+        raise AssertionError(f"p15 (a): conv_0 ran as {stem}")
+    net.quant_int8 = None
+    runs = {"s2d_bf16": p15_runner(net, data, tmp, "s2d_bf16")[0]}
+    out["serving"] = p15_serving(net, s2d, root, tmp, dev)
+    net.quant_int8 = quant
+    runs["s2d_int8"], chunk = p15_runner(net, data, tmp, "s2d_int8")
+    del net
+    torch.cuda.empty_cache()
+    chunk_report = int8_chunk_check(chunk.pop("quant"), chunk)
+    del chunk, quant
+    torch.cuda.empty_cache()
+    plain = variant_config(full_mmmot(), "full_mmmot_no_bn_last_stage",
+                           batch_norm=False, skip_pool=False)
+    net = init_random_(TrackingNet(plain.model, device=dev), 0)
+    runs["no_bn_last_stage"] = p15_runner(net, data, tmp,
+                                          "no_bn_last_stage")[0]
+    del net
+    torch.cuda.empty_cache()
+    out["runs"] = runs
+    out["training"] = p15_training(root, tmp, smi)
+    torch.cuda.empty_cache()
+    out["serving_agreement"] = p15_serving_agreement(tmp, dev)
+    out.update(kernel=kernel, runner_chunk=chunk_report, gpu=smi,
+               seconds=time.perf_counter() - t0)
+    stage(f"phase 15: {out['seconds']:.1f} s on {smi}")
+    return stem, out
+
+
+def stem_entry(stem, p15):
+    """The kernel line's entry of the int8 conv's stem instance at the
+    s2d stem's conv_0, [32, 112, 112, 12] -> 64, with its launches on
+    phase 15 (c)'s s2d int8 runner."""
+    chunk0 = p15["runner_chunk"]["layers"][0]
+    return {
+        "name": "int8_conv3x3_requant[stem Cin=12]", "route": "cuda",
+        "source": "mmmot_tpu_torch/csrc/int8_conv.cu",
+        "replaces": "mmmot_tpu/models/quantize.py:267 (the XLA int8 conv "
+                    "of quantized_trunk_stages after the s2d relayout at "
+                    ":258-259; no Pallas kernel)",
+        "instance": "stem (im2col in shared memory), Kp 108 -> 128",
+        "launches": p15["runs"]["s2d_int8"]["int8_launches_by_kind"][
+            "stem_launches"],
+        "max_abs_err": max(stem["max_abs_err"], chunk0["max_abs_err"]),
+        **{k: stem[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "call_ms", "cudnn_bf16_ms",
+                                "ops_ms", "bytes_ms", "gops", "plan")},
+        "library_call": "torch._int_mm over the im2col'd input (the int8 "
+                        "product alone)",
+        "dtype": "int8", "shape": [stem["n"], *stem["hw"], stem["cin"],
+                                   stem["cout"]],
+        "runner_chunk": {k: chunk0[k] for k in ("n", "ms", "plain_ms",
+                                                "bound_ms", "library_ms",
+                                                "cudnn_bf16_ms")}}
+
+
 def check_fma(dev):
     """The GPU's ``fma`` (``torch.addcmul``) rounds once, as the CPU's
     float64 form does and as the reference's compiled multiply-adds do."""
@@ -4246,6 +4685,8 @@ def main(argv=None) -> int:
         kern_var, variants = variants_phase(dev, smi, root, tmp)
         torch.cuda.empty_cache()
         kern_wide, wide = phase14(dev, smi, root, tmp)
+        torch.cuda.empty_cache()
+        stem, p15 = phase15(dev, smi, root, tmp)
 
     def at(dtype, B):
         r = kern[dtype, B]
@@ -4416,11 +4857,13 @@ def main(argv=None) -> int:
     print(json.dumps({"solvers": solvers}))
     print(json.dumps({"variants": variants}))
     print(json.dumps({"phase14": wide}))
+    print(json.dumps({"phase15": {k: v for k, v in p15.items()
+                                  if k != "runner_chunk"}}))
     print(json.dumps({"kernels": [entry, entry_bias] + serving_entries
                       + [entry_int8] + instance_entries(kern_inst, solvers)
                       + variant_entries(kern_var, variants)
                       + [wide_entry(kern_wide, wide["wide_runner"][
-                          "wide_launches"])]}))
+                          "wide_launches"]), stem_entry(stem, p15)]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

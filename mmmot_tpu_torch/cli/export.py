@@ -23,6 +23,11 @@ into the artifact (``"int8": true``).
     python -m mmmot_tpu_torch.cli.export --config full_mmmot_int8 \\
         --load-path checkpoints/full_mmmot_best --out artifacts/int8 \\
         --calib-root data/kitti_tracking
+
+A model variant that no preset names is exported from ``--config-json
+FILE``, a JSON file of ``config.config_to_dict(cfg)``; every artifact's
+manifest holds its whole config (``config_dict``), so ``--exported``
+serves a variant as it serves a preset.
 """
 
 from __future__ import annotations
@@ -38,8 +43,11 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(
         description="export a tracking step of mmmot_tpu_torch as an "
                     "artifact")
-    p.add_argument("--config", required=True, choices=PRESETS,
-                   help="config preset")
+    which = p.add_mutually_exclusive_group(required=True)
+    which.add_argument("--config", choices=PRESETS, help="config preset")
+    which.add_argument("--config-json", default=None, metavar="FILE",
+                       help="a whole config as JSON "
+                            "(config.config_to_dict): a model variant")
     weights = p.add_mutually_exclusive_group()
     weights.add_argument("--load-path", default=None, metavar="DIR",
                          help="checkpoint dir of the port's trainer (its "
@@ -95,7 +103,13 @@ def main(argv=None):
                                         export_serve_step,
                                         export_window_step)
 
-    cfg = getattr(presets, args.config)()
+    if args.config_json:
+        import json
+
+        with open(args.config_json) as f:
+            cfg = presets.config_from_dict(json.load(f))
+    else:
+        cfg = getattr(presets, args.config)()
     h, w, m = (int(x) for x in args.shape.split("x"))
     module = build_module(cfg, args.weights, args.seed,
                           "cpu" if args.cpu else "cuda", args.load_path)

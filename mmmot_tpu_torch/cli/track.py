@@ -63,7 +63,8 @@ import os
 
 PRESETS = ("full_mmmot", "full_mmmot_ydet", "full_mmmot_noisy",
            "full_mmmot_lookalike", "full_mmmot_int8", "batched_val",
-           "fusion_C", "img_only", "lidar_only", "tiny_debug")
+           "fusion_C", "img_only", "lidar_only", "tiny_debug", "tiny_kitti",
+           "tiny_long", "tiny_long30")
 
 
 def parse_args(argv=None):

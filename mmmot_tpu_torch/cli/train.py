@@ -15,8 +15,11 @@ weights are kept in ``<ckpt_dir>/<config>_best``; the synthetic mode
 validates on synthetic sequences through ``track_sequence``.  The
 latest checkpoints go to ``<ckpt_dir>/<config>/<step>/``, scalars
 (loss terms, lr, validation metrics) to ``<log-dir>/scalars.jsonl``.
-Weights start from a seed (``train.seed``); ``--load-path`` restores a
-checkpoint directory, ``--recover`` resumes the run's own.  The GPU is
+Weights start from a seed (``train.seed``); ``--pretrained-vgg PATH``
+then copies a local torchvision ``vgg<depth>_bn`` state dict into the
+appearance trunk (``compat/pretrained.py``; the report is logged);
+``--load-path`` restores a checkpoint directory, ``--recover`` resumes
+the run's own.  The GPU is
 used unless ``--cpu`` is given.  ``run(cfg, args)`` is the loop, for a
 caller with its own ``Config``.
 """
@@ -30,7 +33,8 @@ import time
 
 PRESETS = ("full_mmmot", "full_mmmot_b8", "full_mmmot_ydet",
            "full_mmmot_noisy", "full_mmmot_lookalike", "batched_val",
-           "fusion_C", "img_only", "lidar_only", "tiny_debug")
+           "fusion_C", "img_only", "lidar_only", "tiny_debug", "tiny_kitti",
+           "tiny_long", "tiny_long30")
 
 
 def parse_args(argv=None):
@@ -42,6 +46,11 @@ def parse_args(argv=None):
                         "data.root)")
     p.add_argument("--load-path", default=None,
                    help="checkpoint dir to load the train state from")
+    p.add_argument("--pretrained-vgg", default=None, metavar="PTH",
+                   help="local torchvision vgg<depth>_bn state dict to "
+                        "start the appearance trunk from (the reference's "
+                        "vgg16_bn(pretrained=True)); loaded with "
+                        "weights_only")
     p.add_argument("--recover", action="store_true",
                    help="resume training (optimizer state + step)")
     p.add_argument("-e", "--evaluate", action="store_true",
@@ -116,7 +125,8 @@ def run(cfg, args):
     """The training loop over ``cfg`` with ``args`` (``parse_args``'s
     namespace; its ``--config`` and ``--data-root`` are not read).
     Returns {"state": the TrainState, "losses": the total loss of every
-    step, "val": {tag: TrackingMetrics}}."""
+    step, "val": {tag: TrackingMetrics}} and, with ``--pretrained-vgg``,
+    "pretrained_vgg": the load's report."""
     import numpy as np
     import torch
 
@@ -175,6 +185,16 @@ def run(cfg, args):
             return next(batch_iter)
 
     state = create_train_state(net, tcfg, args.steps_per_epoch)
+    result = {"state": state, "losses": [], "val": {}}
+    if getattr(args, "pretrained_vgg", None):
+        from mmmot_tpu_torch.compat.pretrained import load_pretrained_vgg
+
+        report = load_pretrained_vgg(net, args.pretrained_vgg,
+                                     depth=cfg.model.appearance.depth)
+        result["pretrained_vgg"] = report
+        log.info("pretrained VGG loaded: %d tensors from %s (unexpected "
+                 "unused keys: %s)", len(report["converted"]),
+                 args.pretrained_vgg, report["unexpected_unused"] or "none")
     ckpt_dir = os.path.join(tcfg.ckpt_dir, cfg.name)
     start_epoch = 0
     if args.recover and latest_step(ckpt_dir) is not None:
@@ -204,7 +224,6 @@ def run(cfg, args):
         log.info("[val %s] %s", tag, m.summary())
         return m
 
-    result = {"state": state, "losses": [], "val": {}}
     if args.evaluate:
         result["val"]["eval"] = validate("eval")
         return result

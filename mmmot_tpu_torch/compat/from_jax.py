@@ -51,7 +51,11 @@ def load_flax_variables(variables_np: Mapping, net) -> Dict[str, torch.Tensor]:
     """State dict for ``net`` (a ``TrackingNet``) from flax variables.
 
     Raises on any leaf that maps to no tensor of ``net``, any tensor of
-    ``net`` that no leaf fills, and any shape mismatch.
+    ``net`` that no leaf fills, and any shape mismatch.  The structure is
+    the net's: no ``bn_i`` without ``batch_norm``, conv_0 on 12 input
+    channels with the space-to-depth stem; each tensor comes in the
+    dtype of the net's (``param_dtype`` for parameters, rounded to
+    nearest even as the reference's ``astype``).
     """
     out: Dict[str, torch.Tensor] = {}
     for coll, names in (("params", _PARAM_LEAVES),
@@ -71,20 +75,23 @@ def load_flax_variables(variables_np: Mapping, net) -> Dict[str, torch.Tensor]:
         if tuple(v.shape) != tuple(want[k].shape):
             raise ValueError(f"{k}: flax shape {tuple(v.shape)} != torch "
                              f"shape {tuple(want[k].shape)}")
+        out[k] = v.to(want[k].dtype)    # parameters in ``param_dtype``
     return out
 
 
-def quant_from_flax(tree: Mapping, depth: int, device="cpu"):
-    """A ``QuantizedAppearance`` (VGG ``depth``) on ``device`` from the
-    reference's ``quant_int8`` tree of arrays; the conv weights are
-    repacked once into the kernel's layout."""
+def quant_from_flax(tree: Mapping, depth: int, device="cpu",
+                    s2d_stem: bool = False):
+    """A ``QuantizedAppearance`` (VGG ``depth``, with or without the
+    space-to-depth stem) on ``device`` from the reference's
+    ``quant_int8`` tree of arrays; the conv weights are repacked once
+    into the kernel's layout."""
     from mmmot_tpu_torch.models.quantize import QuantizedAppearance
 
     layers = [{k: np.asarray(v[k]) for k in ("w", "m", "b")}
               for v in tree["layers"]]
     return QuantizedAppearance(
         depth, np.asarray(tree["in_scale"], np.float32), layers,
-        [np.asarray(s, np.float32) for s in tree["stage_scales"]]
+        [np.asarray(s, np.float32) for s in tree["stage_scales"]], s2d_stem
     ).to(device)
 
 

@@ -1,52 +1,62 @@
 """Configuration of the port: frozen dataclasses and Python presets.
 
-The knobs the flagship raw-frames path, the KITTI runner, the
-association quality stack, the look-alike stack (GNN refine, learned
-motion, the class gate), the int8 appearance trunk and training read are
-carried, with the modality switches and the score fusion of the
-single-branch presets, every solver of the reference and the model
-variants: the correlation ops, the link head's depth and its softmax
-mode, new/end v1 or v2 with its pool, fusion A, B or C with or without
-``keep_single``, and the PointNet T-Net.  Their defaults are the
-shipped presets' (subabs, a 2-layer head, dual softmax, v2 heads with
-max pooling, fusion C with ``keep_single``, no T-Net), and the checks
-are the reference's.  Not carried: VGG without batch norm or skip
-pooling, DropBlock and the space-to-depth stem (ROADMAP Queue 1).  The
-crop size and the points per detection are the model's (the JAX
-``data`` section repeats them).  Field names and defaults follow the JAX
-package's ``mmmot_tpu/config.py``.  No YAML is parsed: each preset
-spells out its ``experiments/<name>/config.yaml``.
+Every field of the JAX package's model config is carried, with its
+default and its check (``mmmot_tpu/config.py``): the VGG trunk's depth,
+width, BatchNorm, skip pooling, DropBlock and space-to-depth stem; the
+PointNet and its T-Net; fusion A, B or C with or without
+``keep_single``; the correlation ops, the link head's depth and its
+softmax mode, GNN rounds and the learned motion term; new/end v1 or v2
+with its pool; the modality switches, the score fusion, the compute and
+parameter dtypes, remat and the int8 trunk.  The data, association and
+training sections carry the fields the port reads.  No YAML is parsed:
+each preset spells out its ``experiments/<name>/config.yaml``, and
+``config_to_dict`` / ``config_from_dict`` carry a config through JSON
+(a deployment artifact's manifest).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, Dict, Tuple
 
 
 @dataclass(frozen=True)
 class AppearanceConfig:
-    """VGG-bn trunk with skip pooling over its last three stages."""
+    """VGG trunk (``batch_norm``: a BatchNorm after every conv) with skip
+    pooling over its last three stages (``skip_pool`` off: the last
+    stage alone).  ``dropblock`` drops ``dropblock_size``-square blocks
+    of every stage map at rate ``dropblock_rate`` in training.
+    ``s2d_stem``: a 2x2 space-to-depth of the crops replaces the first
+    pool, so the first stage's convs run at half resolution on 12 input
+    channels (not weight-compatible with the plain stem)."""
 
+    arch: str = "vgg"
     depth: int = 16
+    batch_norm: bool = True
+    skip_pool: bool = True
     reduction_dim: int = 256
     out_dim: int = 512
     crop_size: Tuple[int, int] = (224, 224)
+    dropblock: bool = False
+    dropblock_size: int = 7
+    dropblock_rate: float = 0.1
     width_mult: float = 1.0
-    dropblock: bool = False            # not ported: raises when set
+    s2d_stem: bool = False
 
     def __post_init__(self):
-        if self.dropblock:
-            raise NotImplementedError(
-                "appearance.dropblock (DropBlock2D on the VGG stages) is not "
-                "ported to mmmot_tpu_torch (ROADMAP Queue 1)")
+        if self.arch != "vgg":
+            raise ValueError(f"appearance arch must be 'vgg' (the one "
+                             f"family built), got {self.arch!r}")
         if self.depth not in (11, 13, 16, 19):
             raise ValueError(
                 f"VGG depth must be 11/13/16/19, got {self.depth}")
         if min(self.crop_size) < 32:
             raise ValueError(f"crop_size {self.crop_size} too small: VGG has "
                              "5 pooling stages, crops must be >= 32x32")
+        if self.s2d_stem and (self.crop_size[0] % 2 or self.crop_size[1] % 2):
+            raise ValueError(
+                f"s2d_stem needs even crop dims, got {self.crop_size}")
 
 
 @dataclass(frozen=True)
@@ -120,6 +130,9 @@ class NewEndConfig:
     pool: str = "max"
 
 
+PARAM_DTYPES = ("float32", "bfloat16", "float16")
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     appearance: AppearanceConfig = field(default_factory=AppearanceConfig)
@@ -128,6 +141,11 @@ class ModelConfig:
     affinity: AffinityConfig = field(default_factory=AffinityConfig)
     new_end: NewEndConfig = field(default_factory=NewEndConfig)
     compute_dtype: str = "float32"     # "bfloat16" | "float32" (parity)
+    param_dtype: str = "float32"       # the parameters' dtype: "float32",
+                                       # "bfloat16" or "float16"; each
+                                       # layer casts its weights to the
+                                       # compute dtype (the motion MLP
+                                       # stays float32)
     remat: bool = False                # training: recompute the VGG trunk's
                                        # activations in the backward pass
     int8_appearance: bool = False      # inference only: the VGG trunk in
@@ -139,11 +157,16 @@ class ModelConfig:
     use_lidar: bool = True             # the LiDAR branch (point_net)
     score_fusion: str = "add"          # how the branches' link scores
                                        # combine: add | avg | fused-only
+    feature_dim: int = 512             # the reference's field; no layer
+                                       # reads it
 
     def __post_init__(self):
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype must be float32/bfloat16, "
                              f"got {self.compute_dtype!r}")
+        if self.param_dtype not in PARAM_DTYPES:
+            raise ValueError(f"param_dtype must be one of {PARAM_DTYPES}, "
+                             f"got {self.param_dtype!r}")
         if self.score_fusion not in ("add", "avg", "fused-only"):
             raise ValueError(f"score_fusion must be add/avg/fused-only, "
                              f"got {self.score_fusion!r}")
@@ -300,6 +323,44 @@ class Config:
     train: TrainConfig = field(default_factory=TrainConfig)
 
 
+_SECTIONS = {"model": ModelConfig, "data": DataConfig, "assoc": AssocConfig,
+             "train": TrainConfig, "appearance": AppearanceConfig,
+             "point": PointConfig, "fusion": FusionConfig,
+             "affinity": AffinityConfig, "new_end": NewEndConfig}
+
+
+def _build(cls, d: Dict[str, Any]):
+    """``cls`` from a mapping of its fields (``mmmot_tpu/config.py::
+    _build``): a nested mapping builds its section, a list becomes a
+    tuple; an unknown key raises ``KeyError``."""
+    fields = {f.name for f in dataclasses.fields(cls)}
+    kw = {}
+    for k, v in d.items():
+        if k not in fields:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        if isinstance(v, dict):
+            if k not in _SECTIONS:
+                raise TypeError(f"config key {k!r} does not take a mapping")
+            kw[k] = _build(_SECTIONS[k], v)
+        elif isinstance(v, list):
+            kw[k] = tuple(v)
+        else:
+            kw[k] = v
+    return cls(**kw)
+
+
+def config_from_dict(d: Dict[str, Any]) -> "Config":
+    """A ``Config`` from nested dicts (``config_to_dict``'s output, or a
+    JSON reading of it), with every section's checks."""
+    return _build(Config, d)
+
+
+def config_to_dict(cfg: "Config") -> Dict[str, Any]:
+    """Nested dicts of ``cfg``'s fields (tuples stay tuples; JSON writes
+    them as lists, which ``config_from_dict`` turns back)."""
+    return dataclasses.asdict(cfg)
+
+
 # ``train:`` of experiments/full_mmmot/config.yaml (and of the presets
 # built on it): adam at 3e-4, 4 pairs a step at capacity 128, step decay
 # at epochs 20 and 30 of 40.
@@ -448,3 +509,30 @@ def lidar_only() -> Config:
     return dataclasses.replace(
         base, name="lidar_only",
         model=dataclasses.replace(base.model, use_image=False))
+
+
+def tiny_kitti() -> Config:
+    """``experiments/tiny_kitti/config.yaml``: ``tiny_debug``'s model on a
+    small KITTI tree (its ``data.root``)."""
+    base = tiny_debug()
+    return dataclasses.replace(
+        base, name="tiny_kitti",
+        data=dataclasses.replace(base.data, root="/tmp/minikitti"))
+
+
+def tiny_long() -> Config:
+    """``experiments/tiny_long/config.yaml``: ``tiny_debug`` trained for
+    12 epochs at 1e-3 on a cosine schedule."""
+    base = tiny_debug()
+    return dataclasses.replace(
+        base, name="tiny_long",
+        train=dataclasses.replace(base.train, epochs=12, lr=1e-3,
+                                  lr_schedule="cosine"))
+
+
+def tiny_long30() -> Config:
+    """``experiments/tiny_long30/config.yaml``: ``tiny_long`` for 30
+    epochs (VGG11 at width 0.125, as ``tiny_debug``)."""
+    return dataclasses.replace(
+        tiny_long(), name="tiny_long30",
+        train=dataclasses.replace(tiny_long().train, epochs=30))

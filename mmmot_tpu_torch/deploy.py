@@ -15,8 +15,9 @@ Artifact layout (one directory; ``manifest.json``'s ``kind`` is
                    (``compat.from_jax.to_flax_variables``), one entry
                    per path, the keys joined by ``//``
     state0.npz     the zero tracker state of the step's carry
-    manifest.json  kind, shapes, ``config`` (a preset name of
-                   ``mmmot_tpu_torch.config``), ``"platforms": ["cuda"]``,
+    manifest.json  kind, shapes, ``config`` (the config's name) and
+                   ``config_dict`` (the whole config,
+                   ``config.config_to_dict``), ``"platforms": ["cuda"]``,
                    the two trees' structure and dtypes, and ``program``
 
 The JAX package's artifact also holds ``serve_step.stablehlo``, its
@@ -54,6 +55,7 @@ import torch
 from mmmot_tpu_torch.compat.from_jax import (load_flax_variables,
                                              quant_from_flax,
                                              to_flax_variables)
+from mmmot_tpu_torch.config import config_from_dict, config_to_dict
 from mmmot_tpu_torch.ops.crop_resize import (crop_and_resize_batched,
                                              normalize_crops)
 from mmmot_tpu_torch.ops.frustum import frustum_sample_batched
@@ -417,6 +419,7 @@ def save_artifact(out_dir: str, variables, state0, cfg,
         "state0_structure": _skeleton(state0),
         "platforms": ["cuda"],
         "config": cfg.name,
+        "config_dict": config_to_dict(cfg),
         "image_hw": list(image_hw),
         "cloud_points": int(cloud_points),
         "max_dets": int(cfg.data.max_dets),
@@ -441,6 +444,20 @@ def _preset(name: str):
         raise ValueError(f"artifact config {name!r} is not a preset of "
                          f"mmmot_tpu_torch.config ({', '.join(PRESETS)})")
     return getattr(presets, name)()
+
+
+def _artifact_config(manifest: Dict):
+    """The artifact's ``Config``: built from ``config_dict`` where the
+    manifest holds one (any variant the port builds), else the preset
+    that ``config`` names (the JAX package's artifacts, which carry the
+    name alone); a name that is no preset raises."""
+    if "config_dict" in manifest:
+        cfg = config_from_dict(manifest["config_dict"])
+        if cfg.name != manifest["config"]:
+            raise ValueError(f"manifest config {manifest['config']!r} and "
+                             f"config_dict name {cfg.name!r} differ")
+        return cfg
+    return _preset(manifest["config"])
 
 
 def _check_state0(manifest, stored, fresh, cdt, what: str) -> None:
@@ -502,8 +519,9 @@ def _load_weights(net, weights, int8: bool, what: str) -> None:
         raise ValueError(f"{what}: the weights hold a quant_int8 trunk but "
                          "the manifest does not say int8")
     net.load_state_dict(load_flax_variables(weights, net))
-    net.quant_int8 = (quant_from_flax(weights["quant_int8"],
-                                      net.cfg.appearance.depth, net.device)
+    app = net.cfg.appearance
+    net.quant_int8 = (quant_from_flax(weights["quant_int8"], app.depth,
+                                      net.device, app.s2d_stem)
                       if int8 else None)
 
 
@@ -514,12 +532,12 @@ def _load(path: str, device):
     from mmmot_tpu_torch.models.tracking_net import TrackingNet
 
     manifest = _read_manifest(path)
-    cfg = _preset(manifest["config"])
+    cfg = _artifact_config(manifest)
     for key, want in (("max_dets", cfg.data.max_dets),
                       ("point_len", cfg.data.point_len),
                       ("crop_size", list(cfg.data.crop_size))):
         if manifest[key] != want:
-            raise ValueError(f"{path!r}: {key} {manifest[key]} != preset "
+            raise ValueError(f"{path!r}: {key} {manifest[key]} != config "
                              f"{cfg.name}'s {want}")
     net = TrackingNet(cfg.model, device=resolve_device(device))
     with np.load(os.path.join(path, manifest["weights"])) as z:

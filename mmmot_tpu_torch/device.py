@@ -19,7 +19,8 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 def dtype_of(name: str) -> torch.dtype:
-    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
 
 
 @contextlib.contextmanager

@@ -1,6 +1,8 @@
-"""Image branch: VGG-bn trunk with skip pooling, port of
-``mmmot_tpu/models/appearance.py`` (``trunk_ops``, ``VGGBackbone``,
-``AppearanceNet``) without the space-to-depth stem.
+"""Image branch: VGG trunk with skip pooling, port of
+``mmmot_tpu/models/appearance.py`` (``space_to_depth``, ``trunk_ops``,
+``VGGBackbone``, ``AppearanceNet``): with or without BatchNorm, skip
+pooling over the last three stages or the last stage alone, DropBlock
+on the stage maps in training, and the space-to-depth stem.
 
 Crops arrive as [..., h, w, 3] like the reference; the permute to NCHW is
 a view with channels-last strides, which cuDNN runs directly.  In train
@@ -18,7 +20,8 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mmmot_tpu_torch.config import AppearanceConfig
-from mmmot_tpu_torch.models.layers import Conv3x3, Dense, MaskedBatchNorm
+from mmmot_tpu_torch.models.layers import (Conv3x3, Dense, DropBlock2D,
+                                           MaskedBatchNorm)
 
 VGG_PLANS = {
     11: (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
@@ -31,13 +34,29 @@ VGG_PLANS = {
 }
 
 
-def trunk_ops(depth: int):
-    """("conv", i, ch) | ("pool",) | ("stage",) in execution order; a stage
-    boundary follows every 2x2 max-pool."""
-    ops, conv_i = [], 0
+def space_to_depth(x, block: int = 2):
+    """[..., H, W, C] -> [..., H/b, W/b, b*b*C]: channel (dy*b + dx)*C + c
+    of output pixel (i, j) is channel c of input pixel (b*i + dy,
+    b*j + dx) (a relayout; any dtype)."""
+    *lead, h, w, c = x.shape
+    x = x.reshape(*lead, h // block, block, w // block, block, c)
+    x = x.transpose(-4, -3)
+    return x.reshape(*lead, h // block, w // block, block * block * c)
+
+
+def trunk_ops(depth: int, s2d_stem: bool = False):
+    """("s2d",) | ("conv", i, ch) | ("pool",) | ("stage",) in execution
+    order; a stage boundary follows every 2x2 max-pool.  With
+    ``s2d_stem`` the space-to-depth relayout comes first and replaces
+    the first pool; every stage's shape is unchanged."""
+    ops, conv_i = ([("s2d",)] if s2d_stem else []), 0
+    first_pool = s2d_stem
     for item in VGG_PLANS[depth]:
         if item == "M":
-            ops += [("pool",), ("stage",)]
+            if not first_pool:
+                ops.append(("pool",))
+            first_pool = False
+            ops.append(("stage",))
         else:
             ops.append(("conv", conv_i, item))
             conv_i += 1
@@ -45,26 +64,31 @@ def trunk_ops(depth: int):
 
 
 class VGGBackbone(nn.Module):
-    """The VGG trunk.  With ``remat``, in train mode with gradients on,
-    each pooling stage runs under ``torch.utils.checkpoint``: only the
+    """The VGG trunk: ``conv_i`` (and with ``batch_norm`` ``bn_i``) per
+    conv; with ``s2d_stem`` conv_0 takes the 12 channels of the
+    space-to-depth crops.  With ``remat``, in train mode with gradients
+    on, each stage runs under ``torch.utils.checkpoint``: only the
     stage boundaries are kept for the backward pass, and a stage's
     activations are recomputed when its backward runs (with the running
     statistics frozen, so that they move once a step)."""
 
     def __init__(self, depth: int, width_mult: float, dtype: torch.dtype,
-                 remat: bool = False):
+                 remat: bool = False, batch_norm: bool = True,
+                 s2d_stem: bool = False):
         super().__init__()
-        self.ops = trunk_ops(depth)
+        self.ops = trunk_ops(depth, s2d_stem)
         self.remat = remat
+        self.batch_norm = batch_norm
         self.channels = []
-        in_ch = 3
+        in_ch = 12 if s2d_stem else 3
         for op in self.ops:
             if op[0] != "conv":
                 continue
             _, i, item = op
             ch = max(8, int(item * width_mult))
             self.add_module(f"conv_{i}", Conv3x3(in_ch, ch, dtype))
-            self.add_module(f"bn_{i}", MaskedBatchNorm(ch, dtype, dim=1))
+            if batch_norm:
+                self.add_module(f"bn_{i}", MaskedBatchNorm(ch, dtype, dim=1))
             in_ch = ch
             self.channels.append(ch)
 
@@ -89,12 +113,16 @@ class VGGBackbone(nn.Module):
 
     def _segment(self, ops, x, mask):
         for op in ops:
-            if op[0] == "pool":
+            if op[0] == "s2d":
+                x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            elif op[0] == "pool":
                 x = F.max_pool2d(x, 2)
             else:
                 i = op[1]
                 x = getattr(self, f"conv_{i}")(x)
-                x = torch.relu(getattr(self, f"bn_{i}")(x, mask))
+                if self.batch_norm:
+                    x = getattr(self, f"bn_{i}")(x, mask)
+                x = torch.relu(x)
         return x
 
     @contextlib.contextmanager
@@ -112,14 +140,19 @@ class VGGBackbone(nn.Module):
 
 
 class AppearanceNet(nn.Module):
-    """crops [..., h, w, 3] (+ slot mask [...]) -> embeddings [..., out]."""
+    """crops [..., h, w, 3] (+ slot mask [...]) -> embeddings [..., out].
+
+    With ``cfg.dropblock`` every stage map passes a ``DropBlock2D``
+    (``dropblock_{i}``; the identity in eval mode) before the pick: the
+    last three stages with ``skip_pool``, else the last one."""
 
     def __init__(self, cfg: AppearanceConfig, dtype: torch.dtype,
                  remat: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = dtype
-        self.backbone = VGGBackbone(cfg.depth, cfg.width_mult, dtype, remat)
+        self.backbone = VGGBackbone(cfg.depth, cfg.width_mult, dtype, remat,
+                                    cfg.batch_norm, cfg.s2d_stem)
         # Stage widths are the widths of the last conv before each pool.
         stage_ch, ch = [], None
         for op in self.backbone.ops:
@@ -127,8 +160,12 @@ class AppearanceNet(nn.Module):
                 ch = self.backbone.channels[op[1]]
             elif op[0] == "stage":
                 stage_ch.append(ch)
-        # Skip pooling over the last three stages (conv3/4/5).
-        picked = stage_ch[-3:]
+        if cfg.dropblock:
+            for i in range(len(stage_ch)):
+                self.add_module(f"dropblock_{i}", DropBlock2D(
+                    cfg.dropblock_rate, cfg.dropblock_size))
+        # Skip pooling over the last three stages (conv3/4/5), or the last.
+        picked = stage_ch[-3:] if cfg.skip_pool else stage_ch[-1:]
         for i, c in enumerate(picked):
             self.add_module(f"reduce_{i}", Dense(c, cfg.reduction_dim, dtype))
             self.add_module(f"reduce_bn_{i}",
@@ -142,6 +179,9 @@ class AppearanceNet(nn.Module):
         x = crops.reshape(-1, h, w, c).to(self.compute_dtype)
         flat_mask = None if mask is None else mask.reshape(-1)
         stages = self.backbone(x.permute(0, 3, 1, 2), flat_mask)
+        if self.cfg.dropblock:
+            stages = [getattr(self, f"dropblock_{i}")(s)
+                      for i, s in enumerate(stages)]
         pooled = []
         for i, s in enumerate(stages[-self.n_picked:]):
             p = s.amax(dim=(2, 3))                       # global max pool

@@ -248,6 +248,75 @@ def norm_group(net: nn.Module, group):
             m.group = g
 
 
+class DropBlock2D(nn.Module):
+    """Structured dropout of NCHW maps: port of
+    ``mmmot_tpu/models/layers.py::DropBlock2D``.
+
+    In train mode, with ``bs = min(block_size, H, W)``, seeds are drawn
+    at rate ``gamma = rate / bs**2 * H*W / ((H-bs+1) * (W-bs+1))`` on
+    the [n, 1, H-bs+1, W-bs+1] grid (one mask for every channel), padded
+    to H x W as the reference pads them, grown into bs x bs blocks by a
+    stride-1 max-pool, and the map is kept outside the blocks and
+    divided by the kept share of its image (at least 1e-6).  In eval mode
+    and at rate 0 the layer is the identity.
+
+    The seeds come from ``draw``: ``generator`` (a ``torch.Generator``
+    on the map's device, which the trainer owns and sets with
+    ``set_dropblock_generator``), or are given to ``forward`` (``seeds``:
+    0/1 of that grid's shape), so that a test can feed the reference's
+    own draw."""
+
+    def __init__(self, rate: float = 0.1, block_size: int = 7):
+        super().__init__()
+        self.rate = rate
+        self.block_size = block_size
+        self.generator = None
+
+    def grid(self, x):
+        """(seed grid shape, gamma, bs) for the map ``x`` [n, C, H, W]."""
+        h, w = x.shape[-2], x.shape[-1]
+        bs = min(self.block_size, h, w)
+        gamma = (self.rate / (bs ** 2)) * ((h * w) /
+                                           max((h - bs + 1) * (w - bs + 1), 1))
+        return (x.shape[0], 1, h - bs + 1, w - bs + 1), gamma, bs
+
+    def draw(self, shape, gamma: float, device) -> torch.Tensor:
+        """Bernoulli(``gamma``) seeds of ``shape`` from ``generator``."""
+        if self.generator is None:
+            raise ValueError("DropBlock2D in train mode needs a generator "
+                             "(set_dropblock_generator) or seeds")
+        return torch.rand(shape, generator=self.generator,
+                          device=device) < gamma
+
+    def forward(self, x, seeds=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        shape, gamma, bs = self.grid(x)
+        if seeds is None:
+            seeds = self.draw(shape, gamma, x.device)
+        if tuple(seeds.shape) != shape:
+            raise ValueError(f"seeds {tuple(seeds.shape)} != grid {shape}")
+        # The reference pads the seeds by (bs // 2, bs - 1 - bs // 2) and
+        # max-pools bs x bs with SAME padding ((bs - 1) // 2 before):
+        # together one zero pad of bs // 2 + (bs - 1) // 2 before and
+        # 2 (bs - 1) in all (the seeds are 0 or 1, so a zero pad is the
+        # SAME pool's -inf pad).
+        lo = bs // 2 + (bs - 1) // 2
+        hi = 2 * (bs - 1) - lo
+        s = F.pad(seeds.to(torch.float32), (lo, hi, lo, hi))
+        keep = (1.0 - F.max_pool2d(s, bs, stride=1)).to(x.dtype)
+        share = keep.float().mean(dim=(2, 3), keepdim=True).to(x.dtype)
+        return x * keep / share.clamp_min(1e-6)
+
+
+def set_dropblock_generator(net: nn.Module, generator) -> None:
+    """Every ``DropBlock2D`` of ``net`` draws its seeds from
+    ``generator``."""
+    for m in net.modules():
+        if isinstance(m, DropBlock2D):
+            m.generator = generator
+
+
 class MLP2(nn.Module):
     """Dense -> ReLU -> Dense, no BatchNorm (new/end and det heads)."""
 

@@ -42,7 +42,7 @@ from mmmot_tpu_torch.device import f32_parity
 from mmmot_tpu_torch.kernels.int8_conv import (int8_conv3x3_requant,
                                                max_pool_int8, pack_weights,
                                                unpack_weights)
-from mmmot_tpu_torch.models.appearance import trunk_ops
+from mmmot_tpu_torch.models.appearance import space_to_depth, trunk_ops
 from mmmot_tpu_torch.models.layers import BN_EPS, fma
 
 # ``quantize_for_inference``'s calibration set, as the reference's: at most
@@ -70,20 +70,25 @@ def _folded_trunk(appear_net) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """``[(W, b), ...]`` in plan order: ``W`` the BN-folded float32 kernel
     [3, 3, Cin, Cout] (HWIO, the reference's layout) and ``b`` the folded
     bias [Cout], eval BatchNorm collapsed into the conv with the eps of
-    ``MaskedBatchNorm``."""
+    ``MaskedBatchNorm``; a trunk without BatchNorm gives its own conv
+    weights and biases."""
     bb = appear_net.backbone
     convs = []
     with torch.no_grad():
         for op in bb.ops:
             if op[0] != "conv":
                 continue
-            conv, bn = getattr(bb, f"conv_{op[1]}"), getattr(bb, f"bn_{op[1]}")
+            conv = getattr(bb, f"conv_{op[1]}")
+            w = conv.weight.float().permute(2, 3, 1, 0)
+            if not bb.batch_norm:
+                convs.append((w, conv.bias.float()))
+                continue
+            bn = getattr(bb, f"bn_{op[1]}")
             g = bn.weight.float() * torch.rsqrt(bn.running_var.float()
                                                 + BN_EPS)
             b = fma(g, conv.bias.float() - bn.running_mean.float(),
                     bn.bias.float())
-            w = conv.weight.float().permute(2, 3, 1, 0) * g
-            convs.append((w, b))
+            convs.append((w * g, b))
     return convs
 
 
@@ -98,7 +103,9 @@ def calibrate_appearance(appear_net, crops) -> Tuple[float, ...]:
     with torch.no_grad(), f32_parity():
         maxes = [y.abs().max()]
         for op in appear_net.backbone.ops:
-            if op[0] == "pool":
+            if op[0] == "s2d":
+                y = space_to_depth(y.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            elif op[0] == "pool":
                 y = F.max_pool2d(y, 2)
             elif op[0] == "conv":
                 w, b = convs[op[1]]
@@ -112,12 +119,12 @@ def _scale(act_max: float) -> float:
     return max(float(act_max), 1e-12) / 127.0
 
 
-def _stage_scales(depth: int, act_scales: Sequence[float]
-                  ) -> Tuple[float, ...]:
+def _stage_scales(depth: int, act_scales: Sequence[float],
+                  s2d_stem: bool = False) -> Tuple[float, ...]:
     """The activation scale live at each stage output (the scale of the
     stage's last conv)."""
     out, conv_i = [], 0
-    for op in trunk_ops(depth):
+    for op in trunk_ops(depth, s2d_stem):
         if op[0] == "conv":
             conv_i += 1
         elif op[0] == "stage":
@@ -133,12 +140,14 @@ class QuantizedAppearance(nn.Module):
 
     ``layers`` take the reference's per-layer dicts ``{"w": HWIO int8
     [3, 3, Cin, Cout], "m": [Cout], "b": [Cout]}`` (tensors or numpy
-    arrays); ``to_flax`` gives that tree back."""
+    arrays); ``to_flax`` gives that tree back.  With ``s2d_stem`` the
+    trunk starts with the space-to-depth relayout (conv_0 on 12
+    channels), as ``trunk_ops`` says."""
 
     def __init__(self, depth: int, in_scale, layers: Sequence[Dict],
-                 stage_scales: Sequence):
+                 stage_scales: Sequence, s2d_stem: bool = False):
         super().__init__()
-        self.ops = trunk_ops(depth)
+        self.ops = trunk_ops(depth, s2d_stem)
         n_convs = sum(op[0] == "conv" for op in self.ops)
         n_stages = sum(op[0] == "stage" for op in self.ops)
         if len(layers) != n_convs or len(stage_scales) != n_stages:
@@ -216,9 +225,10 @@ def quantize_appearance(appear_net, act_scales: Sequence[float]
                      s_out)
         layers.append({"w": w_q, "m": m, "b": _f32_div(b, s_out)})
         s_prev = _scale(act_scales[i + 1])
-    depth = appear_net.cfg.depth
+    depth, s2d = appear_net.cfg.depth, appear_net.cfg.s2d_stem
     return QuantizedAppearance(depth, s_in, layers,
-                               _stage_scales(depth, act_scales)).to(dev)
+                               _stage_scales(depth, act_scales, s2d),
+                               s2d).to(dev)
 
 
 def with_int8_appearance(net, sample_crops):
@@ -284,14 +294,17 @@ def quantize_input(quant: QuantizedAppearance, x) -> torch.Tensor:
 def quantized_trunk_stages(quant: QuantizedAppearance, x
                            ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Run the int8 trunk on float crops ``x`` [n, H, W, 3]: the input
-    quantised (``quantize_input``), each conv ``int8_conv3x3_requant``,
-    each pool on int8: fused into the conv before it (``pool=True``),
-    else ``max_pool_int8``.
+    quantised (``quantize_input``), the space-to-depth relayout on int8
+    (it commutes with the per-tensor quantisation), each conv
+    ``int8_conv3x3_requant``, each pool on int8: fused into the conv
+    before it (``pool=True``), else ``max_pool_int8``.
     Returns ``[(int8 NHWC stage map, its dequant scale)]`` per stage."""
     xq = quantize_input(quant, x)
     stages, ops = [], quant.ops
     for i, op in enumerate(ops):
-        if op[0] == "conv":
+        if op[0] == "s2d":
+            xq = space_to_depth(xq).contiguous()
+        elif op[0] == "conv":
             pool = i + 1 < len(ops) and ops[i + 1][0] == "pool"
             xq = int8_conv3x3_requant(xq, *quant.layer(op[1]), pool=pool)
         elif op[0] == "stage":

@@ -10,7 +10,9 @@ Module and parameter names follow the flax tree (``appear_net``,
 ``compat.from_jax`` maps weights across by name.  As in flax, a module
 exists only where the config uses it: ``appear_net`` with ``use_image``,
 ``point_net`` with ``use_lidar``, and an ``affinity_<b>`` for each of
-``score_branches(cfg)``.  An int8 trunk
+``score_branches(cfg)``.  Parameters are created in
+``cfg.param_dtype`` (the motion MLP's in float32, as the reference's);
+each layer casts them to the compute dtype.  An int8 trunk
 (``models/quantize.py``) attached as ``quant_int8`` takes the image
 branch of ``extract``; it is not part of the state dict.
 """
@@ -77,6 +79,13 @@ class TrackingNet(nn.Module):
                                   cfg.new_end.version, cfg.new_end.pool)
         self.det_head = MLP2(d, cfg.new_end.hidden_dim, 1, dt)
         self.register_module("quant_int8", None)
+        # Parameters in ``param_dtype``, as the reference creates them; the
+        # motion MLP stays float32 there, and the running statistics are
+        # float32 buffers.
+        pdt = dtype_of(cfg.param_dtype)
+        for name, p in self.named_parameters():
+            if not name.startswith("motion."):
+                p.data = p.data.to(pdt)
         self.eval()
         self.to(resolve_device(device))
 

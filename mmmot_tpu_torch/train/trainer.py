@@ -36,7 +36,7 @@ import torch.distributed as dist
 
 from mmmot_tpu_torch.config import TrainConfig
 from mmmot_tpu_torch.device import f32_parity
-from mmmot_tpu_torch.models.layers import norm_group
+from mmmot_tpu_torch.models.layers import norm_group, set_dropblock_generator
 from mmmot_tpu_torch.train.losses import tracking_loss
 
 
@@ -157,20 +157,28 @@ def global_norm(tensors) -> torch.Tensor:
 
 @dataclass
 class TrainState:
-    """The net (parameters and running statistics), its optimizer and
-    the number of steps taken."""
+    """The net (parameters and running statistics), its optimizer, the
+    number of steps taken and the generator that the net's DropBlock
+    layers draw their seeds from."""
 
     net: torch.nn.Module
     optimizer: OptaxChain
     step: int = 0
+    dropblock_gen: torch.Generator = None
 
 
 def create_train_state(net, cfg: TrainConfig,
                        steps_per_epoch: int = 1000) -> TrainState:
     """A train state over ``net``'s weights as they are (seeded, loaded
-    or mapped from the reference); optimizer state starts at zero."""
+    or mapped from the reference); optimizer state starts at zero.  The
+    net's ``DropBlock2D`` layers (``appearance.dropblock``) draw from a
+    generator on the net's device seeded from ``cfg.seed`` (+ 1: the
+    augmentation's generator takes the seed itself)."""
+    gen = torch.Generator(device=next(net.parameters()).device)
+    gen.manual_seed(cfg.seed + 1)
+    set_dropblock_generator(net, gen)
     return TrainState(net, OptaxChain(net.parameters(), cfg,
-                                      steps_per_epoch))
+                                      steps_per_epoch), dropblock_gen=gen)
 
 
 def loss_and_grads(net, batch: Dict[str, torch.Tensor],

@@ -427,12 +427,15 @@ def test_deployed_tracker_launches_the_kernel_once_per_step(gpu, tmp_path):
 # map (odd: its pool drops the last row and column), conv_1's shape (64
 # channels at 224x224, 64-byte swizzle, the halo instance) and the halo
 # instance at 32 and 128 channels a stage (a ragged last row of tiles) and
-# with 128 output channels.  Each runs with and without the fused pool.
+# with 128 output channels; the space-to-depth stem's conv_0 (Cin=12: K
+# 108 padded to 128, 12-byte pixels) at 112x112 and at a ragged 9x11.
+# Each runs with and without the fused pool.
 INT8_SHAPES = [(3, 7, 9, 3, 8), (2, 5, 6, 8, 16), (1, 13, 11, 64, 64),
                (2, 14, 14, 512, 512), (1, 3, 3, 32, 72), (4, 28, 28, 128, 256),
                (2, 7, 7, 512, 512), (2, 9, 12, 96, 72),
                (1, 224, 224, 64, 64), (2, 10, 16, 32, 64),
-               (1, 20, 16, 128, 64), (2, 12, 16, 64, 128), (1, 8, 8, 32, 128)]
+               (1, 20, 16, 128, 64), (2, 12, 16, 64, 128), (1, 8, 8, 32, 128),
+               (2, 112, 112, 12, 64), (1, 9, 11, 12, 8)]
 
 
 @pytest.mark.parametrize("pool", [False, True])
