@@ -23,6 +23,7 @@ import torch
 
 from mmmot_tpu_torch.assoc.cost import (NEG, Decisions, build_assignment_cost,
                                         decode_assignment)
+from mmmot_tpu_torch.utils.profiling import host_read, span, spanned
 
 BIG_NEG = -(2 ** 30)        # forbidden / sentinel for int32 scores
 SYNC_EVERY = 64             # bidding rounds between host checks
@@ -45,8 +46,8 @@ def build_gain_matrix(link, new, end, mask_prev, mask_curr, det_prev=None,
     else:
         out_p, out_c = end, new
     gain = link - out_p[..., :, None] - out_c[..., None, :]
-    return torch.where(pair_ok, gain, torch.tensor(NEG, dtype=gain.dtype,
-                                                   device=gain.device))
+    return torch.where(pair_ok, gain, torch.full((), NEG, dtype=gain.dtype,
+                                                 device=gain.device))
 
 
 def decode_matching(row_to_col, mask_prev, mask_curr, new=None, end=None,
@@ -80,13 +81,62 @@ def _quantize(cost):
     M = cost.shape[-1]
     allowed = cost > NEG / 2
     cost = cost.float()
-    inf = torch.tensor(float("inf"), device=cost.device)
+    inf = torch.full((), float("inf"), device=cost.device)
     cmax = torch.where(allowed, cost, -inf).amax(dim=(-2, -1), keepdim=True)
     cmin = torch.where(allowed, cost, inf).amin(dim=(-2, -1), keepdim=True)
     span = (cmax - cmin).clamp_min(1e-12)
     q = torch.round((cost - cmin) / span * float(2 ** QUANT_BITS))
     ci = q.to(torch.int32) * (M + 1)
     return torch.where(allowed, ci, torch.full_like(ci, BIG_NEG))
+
+
+def _running(assign, eps, it, max_iters: int):
+    """The instances still bidding: unassigned rows or eps above 1, under
+    the iteration cap."""
+    return ((assign < 0).any(dim=1) | (eps > 1)) & (it < max_iters)
+
+
+def _bid_round(cost, assign, owner, prices, eps, it, running, rows, big_neg,
+               cap, scale_div: int):
+    """One round of every running instance: a phase end where the
+    matching is complete, else a bidding round.  Returns the next
+    (assign, owner, prices, eps, it)."""
+    i32 = torch.int32
+    converged = ~(assign < 0).any(dim=1)
+    # Phase end: divide eps, reset the matching, keep the prices.
+    done_eps = torch.clamp_min(eps // scale_div, 1)
+    # Bidding round (Jacobi: every unassigned row bids at once).
+    active = assign < 0
+    v = cost - prices[:, None, :]                    # [S, M, M]
+    best_v, best_j = v.max(dim=2)
+    is_best = rows[None, None, :] == best_j[:, :, None].to(i32)
+    second_v = torch.where(is_best, big_neg, v).amax(dim=2)
+    bid = torch.minimum(best_v - second_v, cap) + eps[:, None]
+    bids = torch.where(active[:, :, None] & is_best, bid[:, :, None],
+                       big_neg)
+    win_bid, win_row = bids.max(dim=1)              # per column
+    win_row = win_row.to(i32)
+    contested = win_bid > BIG_NEG // 2
+    bid_prices = torch.where(contested, prices + win_bid, prices)
+    won = contested[:, None, :] & (win_row[:, None, :] == rows[None, :,
+                                                               None])
+    row_won = won.any(dim=2)
+    new_col = won.to(torch.uint8).argmax(dim=2).to(i32)
+    owned = (owner[:, None, :] == rows[None, :, None]) & contested[:, None,
+                                                                   :]
+    displaced = owned.any(dim=2) & ~row_won
+    bid_assign = torch.where(row_won, new_col,
+                             torch.where(displaced, -1, assign))
+    bid_owner = torch.where(contested, win_row, owner)
+
+    conv = converged[:, None]
+    upd = running[:, None]
+    assign = torch.where(upd, torch.where(conv, -1, bid_assign), assign)
+    owner = torch.where(upd, torch.where(conv, -1, bid_owner), owner)
+    prices = torch.where(upd & ~conv, bid_prices, prices)
+    eps = torch.where(running & converged, done_eps, eps)
+    it = it + running.to(i32)
+    return assign, owner, prices, eps, it
 
 
 def _auction_all_phases(cost, eps_start: int, scale_div: int,
@@ -106,49 +156,19 @@ def _auction_all_phases(cost, eps_start: int, scale_div: int,
     eps = torch.full((S,), eps_start, dtype=i32, device=dev)
     it = torch.zeros((S,), dtype=i32, device=dev)
     rows = torch.arange(M, dtype=i32, device=dev)
-    big_neg = torch.tensor(BIG_NEG, dtype=i32, device=dev)
-    cap = torch.tensor(bid_cap, dtype=i32, device=dev)
+    big_neg = torch.full((), BIG_NEG, dtype=i32, device=dev)
+    cap = torch.full((), bid_cap, dtype=i32, device=dev)
     rounds = 0
-    while True:
-        unfinished = (assign < 0).any(dim=1) | (eps > 1)
-        running = unfinished & (it < max_iters)
-        if rounds % SYNC_EVERY == 0 and not bool(running.any()):
-            break
-        rounds += 1
-        converged = ~(assign < 0).any(dim=1)
-        # Phase end: divide eps, reset the matching, keep the prices.
-        done_eps = torch.clamp_min(eps // scale_div, 1)
-        # Bidding round (Jacobi: every unassigned row bids at once).
-        active = assign < 0
-        v = cost - prices[:, None, :]                    # [S, M, M]
-        best_v, best_j = v.max(dim=2)
-        is_best = rows[None, None, :] == best_j[:, :, None].to(i32)
-        second_v = torch.where(is_best, big_neg, v).amax(dim=2)
-        bid = torch.minimum(best_v - second_v, cap) + eps[:, None]
-        bids = torch.where(active[:, :, None] & is_best, bid[:, :, None],
-                           big_neg)
-        win_bid, win_row = bids.max(dim=1)              # per column
-        win_row = win_row.to(i32)
-        contested = win_bid > BIG_NEG // 2
-        bid_prices = torch.where(contested, prices + win_bid, prices)
-        won = contested[:, None, :] & (win_row[:, None, :] == rows[None, :,
-                                                                   None])
-        row_won = won.any(dim=2)
-        new_col = won.to(torch.uint8).argmax(dim=2).to(i32)
-        owned = (owner[:, None, :] == rows[None, :, None]) & contested[:, None,
-                                                                       :]
-        displaced = owned.any(dim=2) & ~row_won
-        bid_assign = torch.where(row_won, new_col,
-                                 torch.where(displaced, -1, assign))
-        bid_owner = torch.where(contested, win_row, owner)
-
-        conv = converged[:, None]
-        upd = running[:, None]
-        assign = torch.where(upd, torch.where(conv, -1, bid_assign), assign)
-        owner = torch.where(upd, torch.where(conv, -1, bid_owner), owner)
-        prices = torch.where(upd & ~conv, bid_prices, prices)
-        eps = torch.where(running & converged, done_eps, eps)
-        it = it + running.to(i32)
+    running = _running(assign, eps, it, max_iters)
+    # A host check every SYNC_EVERY rounds, the first before any round.
+    while host_read(running.any(), "auction.check"):
+        with span("auction.bid"):
+            for _ in range(SYNC_EVERY):
+                rounds += 1
+                assign, owner, prices, eps, it = _bid_round(
+                    cost, assign, owner, prices, eps, it, running, rows,
+                    big_neg, cap, scale_div)
+                running = _running(assign, eps, it, max_iters)
     return assign, owner, rounds
 
 
@@ -158,15 +178,15 @@ def _complete_matching(cost, assign, owner):
     S, M, _ = cost.shape
     cols = torch.arange(M, device=cost.device)
     batch = torch.arange(S, device=cost.device)
-    big_neg = torch.tensor(BIG_NEG, dtype=cost.dtype, device=cost.device)
+    big_neg = torch.full((), BIG_NEG, dtype=cost.dtype, device=cost.device)
     for i in range(M):
         need = assign[:, i] < 0                          # [S]
         vals = torch.where(owner < 0, cost[:, i], big_neg)
         j = vals.argmax(dim=1)                           # [S]
         assign[:, i] = torch.where(need, j.to(assign.dtype), assign[:, i])
         hit = need[:, None] & (cols[None, :] == j[:, None])
-        owner = torch.where(hit, torch.tensor(i, dtype=owner.dtype,
-                                              device=owner.device), owner)
+        owner = torch.where(hit, torch.full((), i, dtype=owner.dtype,
+                                            device=owner.device), owner)
     return assign, owner
 
 
@@ -181,7 +201,8 @@ def auction_lap(cost, scaling_steps: int = SCALING_STEPS,
     whole batch.
     """
     S, M, _ = cost.shape
-    ci = _quantize(cost)
+    with span("auction.quantize"):
+        ci = _quantize(cost)
     start = (2 ** QUANT_BITS) * (M + 1) // 4
     scale_div = max(2, int(math.ceil(start ** (1.0 / max(scaling_steps,
                                                          1)))))
@@ -189,15 +210,17 @@ def auction_lap(cost, scaling_steps: int = SCALING_STEPS,
     assign, owner, rounds = _auction_all_phases(ci, start, scale_div,
                                                 max_iters, bid_cap)
     auction_lap.rounds += rounds
-    n_unassigned = (assign < 0).sum(dim=1)
-    if bool((n_unassigned > 0).any()):
-        assign, owner = _complete_matching(ci, assign.clone(), owner)
+    with span("auction.complete"):
+        n_unassigned = (assign < 0).sum(dim=1)
+        if host_read((n_unassigned > 0).any(), "auction.check"):
+            assign, owner = _complete_matching(ci, assign.clone(), owner)
     return assign, n_unassigned
 
 
 auction_lap.rounds = 0
 
 
+@spanned("auction")
 def solve_auction(link, new, end, mask_prev, mask_curr,
                   scaling_steps: int = SCALING_STEPS,
                   max_iters: int = 100000, det_prev=None,

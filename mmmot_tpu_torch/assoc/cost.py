@@ -45,7 +45,7 @@ def build_assignment_cost(link, new, end, mask_prev, mask_curr,
     mp, mc = mask_prev.bool(), mask_curr.bool()
     pair_ok = mp[..., :, None] & mc[..., None, :]
     eye = torch.eye(N, dtype=torch.bool, device=link.device)
-    neg = torch.tensor(NEG, dtype=dt, device=link.device)
+    neg = torch.full((), NEG, dtype=dt, device=link.device)
     zero = torch.zeros((), dtype=dt, device=link.device)
     if det_prev is not None:
         dp = torch.where(mp, det_prev, zero).to(dt)

@@ -29,7 +29,7 @@ def greedy_matching(score):
     row_used = torch.zeros((n, M), dtype=torch.bool, device=dev)
     col_used = torch.zeros_like(row_used)
     assign = torch.full((n, M), -1, dtype=torch.int32, device=dev)
-    big = torch.tensor(BIG_NEG, dtype=score.dtype, device=dev)
+    big = torch.full((), BIG_NEG, dtype=score.dtype, device=dev)
     for _ in range(M):
         masked = torch.where(row_used[:, :, None] | col_used[:, None, :],
                              big, flat)

@@ -38,8 +38,8 @@ def associate(link, new, end, mask_prev, mask_curr,
         # Links below the threshold are forbidden outright; the solver
         # then explains those detections by end/new instead.
         link = torch.where(link >= cfg.link_threshold, link,
-                           torch.tensor(NEG, dtype=link.dtype,
-                                        device=link.device))
+                           torch.full((), NEG, dtype=link.dtype,
+                                      device=link.device))
     det = {"det_prev": det_prev, "det_curr": det_curr}
     s = cfg.solver
     if s == "auction":

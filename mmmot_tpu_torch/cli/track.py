@@ -36,6 +36,8 @@ preset's ``model.int8_appearance``, quantises the trunk after the weights
 load, calibrated on real crops of the tree (``models/quantize.py``).
 ``--packed-cache`` packs each sequence into ``<root>/.packed/`` on its
 first load and memory-maps it on later runs (``data/packed_cache.py``).
+``--trace-dir DIR`` profiles the run (``utils/profiling.py::trace``):
+the Chrome trace, the tracer's spans and counts under DIR.
 
 Without a data root (``--data-root`` names no directory) the CLI tracks
 synthetic sequences instead (``data/synthetic.py``, seeds 2000 +
@@ -123,6 +125,10 @@ def parse_args(argv=None):
                         "from the data root")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernels' plain versions)")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="profile the run: DIR/trace.json (torch.profiler's "
+                        "Chrome trace), DIR/spans.jsonl (the tracer's "
+                        "spans) and DIR/counters.json")
     return p.parse_args(argv)
 
 
@@ -147,6 +153,15 @@ def build_module(cfg, weights, seed: int, device, load_path=None):
 
 def main(argv=None):
     args = parse_args(argv)
+    if not args.trace_dir:
+        return run(args)
+    from mmmot_tpu_torch.utils.profiling import trace
+
+    with trace(args.trace_dir):
+        return run(args)
+
+
+def run(args):
     from mmmot_tpu_torch import config as presets
 
     logging.basicConfig(level=logging.INFO, format="%(message)s")

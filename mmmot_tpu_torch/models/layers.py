@@ -209,7 +209,7 @@ class MaskedBatchNorm(nn.Module):
         positions = x.numel() // x.shape[dim]
         if mask is None:
             m = None
-            cnt = torch.tensor(float(positions), device=x.device)
+            cnt = torch.full((), float(positions), device=x.device)
         else:
             # The mask covers the leading non-channel axes; the view has
             # size 1 on every axis it does not cover (the channel too).

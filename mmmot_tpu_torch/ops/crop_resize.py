@@ -18,6 +18,7 @@ default for matmuls has it).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -41,7 +42,7 @@ def _interp_matrix(lo, hi, n_out: int, size_in: int, dtype,
     width; in the whole-frame resize into the constant ``(i + 0.5)``."""
     dev = lo.device
     half = torch.arange(n_out, dtype=torch.float32, device=dev) + 0.5
-    inv = torch.tensor(1.0 / n_out, dtype=torch.float32, device=dev)
+    inv = torch.full((), 1.0 / n_out, dtype=torch.float32, device=dev)
     if band:
         pos = fma(half[None, :], ((hi - lo) * inv)[:, None], lo[:, None])
     else:
@@ -133,7 +134,14 @@ def normalize_crops(crops, scale: float = 1.0 / 255.0):
     """Pixel crops -> ImageNet-normalised float32, rounded as the
     reference's ``(x * scale - mean) / std`` compiles: one multiply-add,
     then a multiply by the float32 reciprocal of ``std``."""
-    mean = torch.tensor(IMAGENET_MEAN, device=crops.device)
-    inv_std = 1.0 / torch.tensor(IMAGENET_STD, device=crops.device)
-    scale = torch.tensor(scale, dtype=torch.float32, device=crops.device)
+    mean, inv_std = _imagenet_stats(crops.device)
+    scale = torch.full((), scale, dtype=torch.float32, device=crops.device)
     return fma(crops.float(), scale, -mean) * inv_std
+
+
+@functools.lru_cache(maxsize=None)
+def _imagenet_stats(device: torch.device):
+    """ImageNet mean and 1/std on ``device``, made once a device: a copy
+    from the host waits for the device's queue to drain."""
+    mean = torch.tensor(IMAGENET_MEAN, device=device)
+    return mean, 1.0 / torch.tensor(IMAGENET_STD, device=device)

@@ -13,7 +13,7 @@ NEG_INF = -1e9
 
 
 def _neg(x: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(NEG_INF, dtype=x.dtype, device=x.device)
+    return torch.full((), NEG_INF, dtype=x.dtype, device=x.device)
 
 
 def masked_max(x, mask, dim, fill: float = 0.0):

@@ -50,6 +50,7 @@ from mmmot_tpu_torch.tracker.tracker import (
     apply_spatial_gate, coverage_score, gather_slots, inherit_ids,
     link_velocity, matched_ages, predicted_boxes, select_ghosts,
     stack_states)
+from mmmot_tpu_torch.utils.profiling import count, span, spanned
 
 
 def _chunked(fn, args, capacity: int, chunk: Optional[int]):
@@ -58,9 +59,12 @@ def _chunked(fn, args, capacity: int, chunk: Optional[int]):
     smaller call.  Eval-mode BatchNorm is per element, so chunking is
     exact."""
     if not chunk or capacity <= chunk:
-        return fn(*args)
-    outs = [fn(*(x[s:s + chunk] for x in args))
-            for s in range(0, capacity, chunk)]
+        with span("extract.chunk"):
+            return fn(*args)
+    outs = []
+    for s in range(0, capacity, chunk):
+        with span("extract.chunk"):
+            outs.append(fn(*(x[s:s + chunk] for x in args)))
     return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
 
 
@@ -76,6 +80,7 @@ def pair_inputs(feats: Dict[str, torch.Tensor], det_mask,
                            dim=-2)
 
 
+@spanned("ids")
 def propagate_ids(match_curr, is_new, det_mask, state0: TrackerState):
     """Frame-by-frame ID bookkeeping over [..., T, N]: a linked detection
     inherits its match's ID and age, a new one takes the next fresh ID (in
@@ -150,7 +155,7 @@ def _scan_track(module: TrackingModule, feats: Dict[str, torch.Tensor],
     state0 = dataclasses.replace(state0, feats={
         k: v if k in F32_FEATS else v.to(cdt)
         for k, v in state0.feats.items()})
-    with torch.inference_mode():
+    with torch.inference_mode(), span("assoc"):
         if module.parallel_assoc:
             return _parallel_track(module, feats, det_mask, state0)
         if module.hybrid_presolve and module.assoc_cfg.revival_window:
@@ -451,6 +456,7 @@ def check_point_source(point_source: str, boxes3d) -> None:
         raise ValueError("point_source='box3d' requires boxes3d [T, N, 7]")
 
 
+@spanned("extract")
 def extract_frames_batched(module: TrackingModule, images, clouds, boxes,
                            det_mask, proj, crop_size: Tuple[int, int],
                            points_per_det: int,
@@ -616,6 +622,7 @@ def extract_frames(module: TrackingModule, images, clouds, boxes, det_mask,
     return {k: v[0] for k, v in feats.items()}, kept[0]
 
 
+@spanned("track.window")
 def track_sequences_from_frames_batched(
         module: TrackingModule, images, clouds, boxes, det_mask, proj,
         crop_size: Tuple[int, int], points_per_det: int,
@@ -651,6 +658,7 @@ def track_sequences_from_frames_batched(
     and "ghost_scores" [S, T, N]; the final state too with
     ``return_state``.
     """
+    count("track.windows")
     dev = module.device
     images, clouds, boxes, det_mask, proj = (
         torch.as_tensor(x, device=dev)

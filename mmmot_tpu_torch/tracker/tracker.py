@@ -32,6 +32,7 @@ from mmmot_tpu_torch.models.affinity import normalize_link
 from mmmot_tpu_torch.models.layers import fma, sigmoid
 from mmmot_tpu_torch.models.tracking_net import AffinityOutput, TrackingNet
 from mmmot_tpu_torch.ops.boxes import pairwise_iou
+from mmmot_tpu_torch.utils.profiling import spanned
 
 # Per-slot feats that stay float32 whatever the compute dtype: bf16
 # rounds KITTI pixel coordinates (~1e3) by up to 4 px; "detsc" is the
@@ -108,11 +109,11 @@ def apply_spatial_gate(link, box_prev, box_curr, cfg: AssocConfig):
     iou = pairwise_iou(box_prev.float(), box_curr.float())
     dt = link.dtype
     if cfg.iou_weight:
-        link = link + torch.tensor(cfg.iou_weight, dtype=dt,
-                                   device=link.device) * iou.to(dt)
+        link = link + torch.full((), cfg.iou_weight, dtype=dt,
+                                 device=link.device) * iou.to(dt)
     if cfg.iou_gate > 0.0:
         link = torch.where(iou >= cfg.iou_gate, link,
-                           torch.tensor(NEG, dtype=dt, device=link.device))
+                           torch.full((), NEG, dtype=dt, device=link.device))
     return link
 
 
@@ -121,8 +122,8 @@ def apply_class_gate(link, cls_prev, cls_curr):
     (``cls_prev`` [..., Np], ``cls_curr`` [..., Nc]) get the assoc ``NEG``
     sentinel in the link's dtype."""
     same = cls_prev[..., :, None] == cls_curr[..., None, :]
-    return torch.where(same, link, torch.tensor(NEG, dtype=link.dtype,
-                                                device=link.device))
+    return torch.where(same, link, torch.full((), NEG, dtype=link.dtype,
+                                              device=link.device))
 
 
 def gather_slots(x, idx):
@@ -401,6 +402,7 @@ class TrackingModule:
                                   pool=c.new_end.pool,
                                   softmax_mode=c.affinity.softmax_mode)
 
+    @spanned("affinity")
     def affinity(self, feats_prev, feats_curr, mask_prev, mask_curr
                  ) -> AffinityOutput:
         """Batched frame pairs: feats {branch: [B, N, D]}, masks [B, N]

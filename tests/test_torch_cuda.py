@@ -363,6 +363,60 @@ def test_tiny_tracking_cpu_equals_gpu(gpu):
     assert torch.equal(ids[0], ids[1])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_window_syncs_only_through_host_read(gpu, dtype):
+    """A tiny two-sequence window under CUDA's sync debug mode "error":
+    every device-to-host sync other than ``utils/profiling.py::
+    host_read``'s (which lifts the mode around its own read) raises, so
+    ``COUNTS["host_syncs"]`` counts every sync of the window; it counts
+    one check every ``SYNC_EVERY`` rounds, one before the first and one
+    for the completion.  The ids equal the same window's without the
+    mode."""
+    from mmmot_tpu_torch.assoc.auction import SYNC_EVERY, auction_lap
+    from mmmot_tpu_torch.tracker.sequence import \
+        track_sequences_from_frames_batched
+    from mmmot_tpu_torch.utils.profiling import COUNTS
+
+    cfg = tiny_debug()
+    model = dataclasses.replace(cfg.model, compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(4)
+    S, T, N, H, W, M = 2, 6, 8, 96, 320, 512
+    images = torch.randint(0, 256, (S, T, H, W, 3), generator=gen,
+                           dtype=torch.uint8)
+    clouds = torch.rand((S, T, M, 4), generator=gen) * torch.tensor(
+        [50.0, 6.0, 68.0, 1.0]) + torch.tensor([-25.0, -3.0, 2.0, 0.0])
+    l = torch.rand((S, T, N), generator=gen) * (W - 60)
+    t = torch.rand((S, T, N), generator=gen) * (H - 30)
+    boxes = torch.stack([l, t, l + 50, t + 25], -1)
+    det_mask = torch.rand((S, T, N), generator=gen) < 0.7
+    proj = torch.tensor([[180.0, 0, W / 2, 0], [0, 180.0, H / 2, 0],
+                         [0, 0, 1, 0]])
+    frames = [x.to(gpu) for x in (images, clouds, boxes, det_mask, proj)]
+    net = init_random_(TrackingNet(model, device=gpu), 1)
+    with torch.no_grad():
+        for head in (net.new_end.new_mlp, net.new_end.end_mlp):
+            head.dense_1.bias.fill_(-3.0)
+    module = TrackingModule(net)
+
+    def window():
+        return track_sequences_from_frames_batched(
+            module, *frames, (32, 32), model.point.point_len,
+            compact_capacity=T * N, extract_chunk=16, crop_window=128)
+
+    want = window()["ids"].cpu()            # builds the kernel
+    torch.cuda.synchronize()
+    r0, c0 = auction_lap.rounds, COUNTS["host_syncs"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = window()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rounds = auction_lap.rounds - r0
+    assert rounds > 0
+    assert COUNTS["host_syncs"] - c0 == rounds // SYNC_EVERY + 2
+    assert torch.equal(out["ids"].cpu(), want)
+
+
 def test_tiny_train_step_cpu_equals_gpu(gpu):
     """One tiny_debug float32 training step (sgd with the clip active,
     compact-first at capacity 12; TF32 off) on the CPU and on the GPU,

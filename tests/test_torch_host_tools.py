@@ -4,8 +4,8 @@ layout), the presets ``tiny_kitti``, ``tiny_long`` and ``tiny_long30``
 and the ``configs`` builders ``flagship()`` and ``tiny()`` (field-equal
 to the reference's YAML and builders), ``config_to_dict`` /
 ``config_from_dict``, the meters (``AverageMeter``, ``Timer``,
-``ScalarWriter``), and ``utils/profiling`` (``FpsMeter``, ``trace``)
-on the CPU.
+``ScalarWriter``), and ``utils/profiling.py::trace`` on the CPU (the
+tracer: ``tests/test_torch_tracing.py``).
 
     python -m pytest tests/test_torch_host_tools.py -q
 """
@@ -202,17 +202,6 @@ def test_meters_match_reference(tmp_path):
             rows.append([{k: v for k, v in json.loads(line).items()
                           if k != "wall"} for line in f])
     assert rows[0] == rows[1] and len(rows[0]) == 2
-
-
-def test_fps_meter_leaves_out_the_first_call():
-    from mmmot_tpu_torch.utils.profiling import FpsMeter
-
-    meter = FpsMeter()
-    for frames in (100, 10, 30):
-        with meter.measure(frames):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert meter._meter.count == 2 and meter.fps > 0.0
-    assert FpsMeter().fps == 0.0
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
