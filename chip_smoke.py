@@ -12,11 +12,11 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
 1. environment: torch, the GPU, and nvidia-smi's name and power limit;
    no CUDA device is an error;
 2. build: the CUDA kernels of ``mmmot_tpu_torch/csrc`` (``affinity.cu``,
-   ``int8_conv.cu``) with nvcc, one process a source, started together;
-   then each kernel's registers, shared memory and spills (ptxas) and its
-   tensor-core instructions (cuobjdump -sass, where the toolkit has it:
-   HMMA / HGMMA, IMMA / IGMMA for int8; every int8 conv instance must
-   hold IGMMA, its wgmma products);
+   ``int8_conv.cu``, ``bn_relu.cu``) with nvcc, one process a source,
+   started together; then each kernel's registers, shared memory and
+   spills (ptxas) and its tensor-core instructions (cuobjdump -sass,
+   where the toolkit has it: HMMA / HGMMA, IMMA / IGMMA for int8; every
+   int8 conv instance must hold IGMMA, its wgmma products);
 3. kernel vs plain: the fused affinity kernel against its plain PyTorch
    version at the flagship shapes (K=3, N=32, D=H=512, hh=256) for B=16
    and B=512 frame pairs, in float32 and bfloat16, with holed masks, an
@@ -25,7 +25,11 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    against 32 real and 32 padded current slots, one pair with an empty
    state); every masked link must be exactly 0; kernel, per-launch, plain
    and library timings, each as device time and as time per call with
-   the host's work;
+   the host's work.  Then the conv epilogue (``fused_bn_relu``) against
+   its op chain (``bn_relu_plain``) on VGG16's 13 conv outputs of a
+   256-crop chunk at 224², pooled where the trunk pools, in bfloat16 and
+   float32: every output equal bit for bit; kernel, chain and bound
+   (3.35 TB/s) per layer and summed;
 4. reference: ``fma`` (``torch.addcmul``) must round once, as its float64
    form does; then the ``tiny_debug`` model tracks a small sequence on the CPU
    (plain versions) and on the GPU (kernels) in float32 with the same
@@ -33,8 +37,9 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
 5. main path: the flagship ``full_mmmot`` at full width, seeded random
    weights, one sequence of T=16 raw 384x1248 frames with 16384-point
    clouds and N=32 slots (about 12 valid per frame), compact-first with
-   chunk 32 and the auction; ids are checked and the fused kernel's launch
-   count must rise during the run;
+   chunk 32 and the auction; ids are checked, the fused kernel's launch
+   count must rise during the run, and the conv epilogue must launch 13
+   times a chunk, 5 of them pooled;
 6. runner: a KITTI tree (two sequences of 100 and 70 frames at 376x1248,
    PNGs from the port's writer, 16384-point scans, labels as oracle
    detections) tracked by ``track_kitti_sequences``.  First ``tiny_debug``
@@ -277,8 +282,9 @@ Phases, each logged to stderr as ``[smoke] <phase> <elapsed>s``:
    manifest's config and served over 20 frames of 0000 (one launch a
    frame), and a tiny float32 variant artifact giving the same ids on
    the CPU and the GPU.  Its JSON line ``{"phase15": ...}`` precedes
-   the kernel line, whose last entry is the int8 conv's stem instance
-   at Cin=12.
+   the kernel line, whose entry before the last is the int8 conv's stem
+   instance at Cin=12; the last is the conv epilogue (``fused_bn_relu``:
+   phase 3's timings and bits, phase 5's launches).
 
 The last stdout line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed; the line before it is a JSON object with one
@@ -311,8 +317,11 @@ from mmmot_tpu_torch.kernels.affinity import (affinity_launches,
                                               affinity_plain,
                                               build_affinity_params,
                                               fused_affinity, heads_plain)
+from mmmot_tpu_torch.kernels.bn_relu import bn_relu_plain, fused_bn_relu
+from mmmot_tpu_torch.kernels.bn_relu import launch_counts as bn_relu_counts
 from mmmot_tpu_torch.models.affinity import correlation_tensor
-from mmmot_tpu_torch.models.layers import fma
+from mmmot_tpu_torch.models.appearance import VGG_PLANS
+from mmmot_tpu_torch.models.layers import MaskedBatchNorm, fma
 from mmmot_tpu_torch.models.tracking_net import TrackingNet, init_random_
 from mmmot_tpu_torch.tracker.kitti_runner import track_kitti_sequences
 from mmmot_tpu_torch.tracker.sequence import track_sequence_from_frames
@@ -321,7 +330,7 @@ from mmmot_tpu_torch.train.parity import step_agreement
 from mmmot_tpu_torch.train.trainer import create_train_state, train_step
 
 T0 = time.time()
-KERNELS = ("affinity", "int8_conv")     # the sources of csrc/
+KERNELS = ("affinity", "int8_conv", "bn_relu")   # the sources of csrc/
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32
 # outside them, HBM3 bandwidth.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -330,6 +339,8 @@ SPIN_HZ = 1.98e9           # H100 SXM boost clock: torch.cuda._sleep cycles
 # Main-path shapes (bench.py's workload, one sequence).
 T, N, H_IMG, W_IMG, M_PTS = 16, 32, 384, 1248, 16384
 CHUNK = 32
+# The runner's extraction chunk: the conv epilogue's crops in phase 3.
+EPILOGUE_CROPS = 256
 # Tolerances, kernel vs plain.  float32: the two sum the 512-term dots in
 # different orders (relative error ~1e-6); 1e-4 of the output's scale.
 # bfloat16: 8 significant bits; an f32 sum that lands near a rounding
@@ -586,6 +597,86 @@ def check_kernel(net, dev):
     return report
 
 
+def vgg16_layers(size: int = 224):
+    """(name, C, H, pool) of VGG16's convs at ``size``², in order; ``pool``
+    where a 2x2 max-pool follows (conv_1, 3, 6, 9 and 12)."""
+    out, i, H = [], 0, size
+    for item in VGG_PLANS[16]:
+        if item == "M":
+            out[-1] = out[-1][:3] + (True,)
+            H //= 2
+        else:
+            out.append((f"conv_{i}", item, H, False))
+            i += 1
+    return out
+
+
+def epilogue_case(n, C, H, dtype, dev, gen):
+    """A conv output [n, C, H, H] (channels-last, as cuDNN writes it)
+    around each channel's BatchNorm mean, the conv bias and an eval
+    BatchNorm with drawn statistics, scales of both signs and shifts."""
+    bn = MaskedBatchNorm(C, dtype, dim=1).to(dev).eval()
+    with torch.no_grad():
+        bn.running_mean.normal_(0.0, 2.0, generator=gen)
+        bn.running_var.normal_(generator=gen).exp_()
+        bn.weight.normal_(generator=gen)
+        bn.bias.normal_(0.5, 1.0, generator=gen)
+        cb = torch.randn(C, generator=gen, device=dev)
+        y = torch.empty((n, C, H, H), device=dev, dtype=dtype,
+                        memory_format=torch.channels_last)
+        y.normal_(generator=gen)
+        y.mul_(bn.running_var.sqrt().to(dtype)[:, None, None])
+        y.add_((bn.running_mean - cb).to(dtype)[:, None, None])
+    return y, cb, bn
+
+
+def check_bn_relu(dev):
+    """Phase 3, the conv epilogue: ``fused_bn_relu`` against the op chain
+    (``bn_relu_plain``) on VGG16's 13 conv outputs of a 256-crop chunk at
+    224², in the trunk's order with the 2x2 max-pool fused where the
+    trunk pools, in bfloat16 and float32.  Every output must equal the
+    chain's bit for bit.  Kernel and chain as device time (``cuda_ms``)
+    and the bound: reading the conv output once and writing the (pooled)
+    activation once at 3.35 TB/s.  Sums over the 13 layers by dtype,
+    with the layers."""
+    gen = torch.Generator(device=dev).manual_seed(20)
+    report = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        rows = []
+        with torch.inference_mode():
+            for name, C, H, pool in vgg16_layers():
+                y, cb, bn = epilogue_case(EPILOGUE_CROPS, C, H, dtype, dev,
+                                          gen)
+                got = fused_bn_relu(y, cb, bn, pool)
+                want = bn_relu_plain(y, cb, bn, pool)
+                if not torch.equal(got.view(bits), want.view(bits)):
+                    raise AssertionError(f"fused_bn_relu {dtype} {name}: "
+                                         "bits differ from the op chain")
+                del got, want
+                ms, call_ms = cuda_ms(
+                    lambda: fused_bn_relu(y, cb, bn, pool), 20)
+                plain_ms, _ = cuda_ms(
+                    lambda: bn_relu_plain(y, cb, bn, pool), 5)
+                out = y.numel() // 4 if pool else y.numel()
+                nbytes = (y.numel() + out) * y.element_size()
+                rows.append({"layer": name, "C": C, "H": H, "pool": pool,
+                             "ms": ms, "call_ms": call_ms,
+                             "plain_ms": plain_ms,
+                             "bound_ms": nbytes / PEAK_BYTES * 1e3})
+                del y, cb, bn
+                torch.cuda.empty_cache()
+        total = {k: sum(r[k] for r in rows)
+                 for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+        stage(f"fused_bn_relu {str(dtype)[6:]} {EPILOGUE_CROPS} crops, 13 "
+              f"layers: {total['ms']:.4f} ms (with the host "
+              f"{total['call_ms']:.4f}), chain {total['plain_ms']:.4f} ms, "
+              f"bound {total['bound_ms']:.4f} ms "
+              f"({total['bound_ms'] / total['ms']:.1%}); bits equal")
+        report[str(dtype)[6:]] = dict(total=total, layers=rows)
+    return report
+
+
 def compiled_code():
     """Registers, shared memory and spills of each kernel from the
     ptxas logs of this process's builds, and the tensor-core
@@ -785,13 +876,20 @@ def main_path(net, dev, smi: str, profile: bool):
           f"crop window {window}")
 
     fused_affinity.launches = auction_lap.rounds = 0
+    fused_bn_relu.launches = fused_bn_relu.pool_launches = 0
     t0 = time.perf_counter()
     out = track_sequence_from_frames(mod, *args, **kw)
     ids = out["ids"].cpu()
     warm_s = time.perf_counter() - t0
     launches, rounds = fused_affinity.launches, auction_lap.rounds
+    epilogue = bn_relu_counts()
     if launches < 1:
         raise AssertionError("main path did not launch the fused kernel")
+    chunks = capacity // CHUNK
+    if epilogue != {"launches": 13 * chunks, "pool_launches": 5 * chunks}:
+        raise AssertionError(f"main path: conv epilogue launches "
+                             f"{epilogue} for {chunks} chunks, expected "
+                             "13 and 5 a chunk")
     if int(out["n_dropped"]) != 0:
         raise AssertionError(f"n_dropped = {int(out['n_dropped'])}")
     if not torch.isfinite(out["det_score"].float()).all():
@@ -799,7 +897,8 @@ def main_path(net, dev, smi: str, profile: bool):
     check_ids(ids, det_mask)
     stage(f"main path: {warm_s * 1e3:.1f} ms for {T} frames = "
           f"{T / warm_s:.1f} FPS on {smi}, {launches} fused-kernel "
-          f"launch(es), {rounds} auction rounds, "
+          f"launch(es), conv epilogue {epilogue} over {chunks} chunks, "
+          f"{rounds} auction rounds, "
           f"{len(ids[ids >= 0].unique())} tracks")
 
     # Stage breakdown: the same call, synchronised between stages.
@@ -808,7 +907,8 @@ def main_path(net, dev, smi: str, profile: bool):
     stage("main path stages (ms): " + ", ".join(
         f"{k} {v:.2f}" for k, v in times.items()))
     result = dict(launches=launches, warm_ms=warm_s * 1e3, fps=T / warm_s,
-                  stages_ms=times, n_valid=n_valid, auction_rounds=rounds)
+                  stages_ms=times, n_valid=n_valid, auction_rounds=rounds,
+                  chunks=chunks, bn_relu_launches=epilogue)
     if profile:
         result["profiled"] = profiled_pass(
             lambda: track_sequence_from_frames(mod, *args, **kw))
@@ -4657,6 +4757,7 @@ def main(argv=None) -> int:
 
     net = init_random_(TrackingNet(full_mmmot().model, device=dev), 0)
     kern = check_kernel(net, dev)
+    epilogue = check_bn_relu(dev)
     check_fma(dev)
     reference_check(dev)
     run = main_path(net, dev, smi, profile)
@@ -4742,9 +4843,9 @@ def main(argv=None) -> int:
                     "b512": at(torch.float32, 512),
                     "entry_band": at(torch.float32, "entry")},
         "ptxas": {k: v for k, v in (ptxas or {}).items()
-                  if not k.startswith("int8")},
+                  if not k.startswith(("int8", "bn_relu"))},
         "sass_tensor_core": {k: v for k, v in (sass or {}).items()
-                             if not k.startswith("int8")},
+                             if not k.startswith(("int8", "bn_relu"))},
     }
     bsc = kern_bias[torch.bfloat16, "scan"]
 
@@ -4851,6 +4952,28 @@ def main(argv=None) -> int:
                   if k.startswith("int8")},
         "sass_tensor_core": {k: v for k, v in (sass or {}).items()
                              if k.startswith("int8")}}
+    ep = epilogue["bfloat16"]["total"]
+    entry_bn_relu = {
+        "name": "fused_bn_relu", "route": "cuda",
+        "source": "mmmot_tpu_torch/csrc/bn_relu.cu",
+        "replaces": "mmmot_tpu/models/appearance.py:110-118 (XLA's fused "
+                    "conv bias, BatchNorm and ReLU loop) and :104 (the "
+                    "reduce_window of nn.max_pool); no Pallas kernel",
+        "launches": run["bn_relu_launches"]["launches"],
+        "pool_launches": run["bn_relu_launches"]["pool_launches"],
+        "launches_by_path": {"main_path": run["bn_relu_launches"]},
+        "main_path_chunks": run["chunks"], "max_abs_err": 0.0,
+        "bits_equal": True,
+        **{k: ep[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
+        "bound_by": "bytes", "library_ms": None,
+        "library_call": "none: no PyTorch call does the four in one pass",
+        "dtype": "bfloat16", "crops": EPILOGUE_CROPS,
+        "shapes": "VGG16's 13 conv outputs at 224², 5 pooled, summed; per "
+                  "layer in 'layers'",
+        "layers": epilogue["bfloat16"]["layers"],
+        "float32": epilogue["float32"],
+        "ptxas": {k: v for k, v in (ptxas or {}).items()
+                  if k.startswith("bn_relu")}}
     print(json.dumps({"serving": serving}))
     print(json.dumps({"int8": {k: v for k, v in int8.items()
                                if k not in ("kernel", "runner_chunk")}}))
@@ -4863,7 +4986,8 @@ def main(argv=None) -> int:
                       + [entry_int8] + instance_entries(kern_inst, solvers)
                       + variant_entries(kern_var, variants)
                       + [wide_entry(kern_wide, wide["wide_runner"][
-                          "wide_launches"]), stem_entry(stem, p15)]}))
+                          "wide_launches"]), stem_entry(stem, p15),
+                         entry_bn_relu]}))
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -98,6 +98,8 @@ def _kernel_label(mangled: str) -> str:
     in launch 1, a lane's entries of a line in launch 2;
     ``products_kernel<bf16,segments,128>`` for the products' instance of
     several correlation ops),
+    ``bn_relu_kernel<bf16,pool,8>`` for the conv epilogue's pooled
+    instance of 8 channels a thread,
     ``int8_conv_main_kernel<128,64,false>`` / ``int8_conv_stem_kernel<64>``
     for the int8 conv's instances and their arguments (output-channel
     tile, K bytes a stage, HALO: ``...ILi128ELi64ELb0EEEv...``), else the
@@ -112,7 +114,8 @@ def _kernel_label(mangled: str) -> str:
                   r"(?:Li(\d+)E)?E", mangled)
     if m is None:
         return mangled
-    flag = "segments" if m.group(1) == "products_kernel" else "bias"
+    flag = {"products_kernel": "segments",
+            "bn_relu_kernel": "pool"}.get(m.group(1), "bias")
     flag = f",{flag}" if m.group(3) == "1" else ""
     n = f",{m.group(4)}" if m.group(4) else ""
     return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}{flag}{n}>"

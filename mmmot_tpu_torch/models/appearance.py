@@ -20,6 +20,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mmmot_tpu_torch.config import AppearanceConfig
+from mmmot_tpu_torch.kernels.bn_relu import fused_bn_relu
 from mmmot_tpu_torch.models.layers import (Conv3x3, Dense, DropBlock2D,
                                            MaskedBatchNorm)
 
@@ -112,11 +113,28 @@ class VGGBackbone(nn.Module):
         return stages
 
     def _segment(self, ops, x, mask):
-        for op in ops:
+        """Run ``ops`` on ``x``.  On a CUDA map, with BatchNorm in eval mode
+        and no gradient asked for (the tracker's and the deployed steps'
+        ``inference_mode``), each conv's bias, BatchNorm, ReLU and the 2x2
+        max-pool that may follow go through one ``fused_bn_relu`` pass,
+        bit-equal to the op chain that every other case runs."""
+        fused = (x.is_cuda and self.batch_norm and not self.training
+                 and not torch.is_grad_enabled())
+        k = 0
+        while k < len(ops):
+            op = ops[k]
+            k += 1
             if op[0] == "s2d":
                 x = space_to_depth(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
             elif op[0] == "pool":
                 x = F.max_pool2d(x, 2)
+            elif fused:
+                i = op[1]
+                conv = getattr(self, f"conv_{i}")
+                pool = k < len(ops) and ops[k][0] == "pool"
+                k += pool
+                x = fused_bn_relu(conv.product(x), conv.bias,
+                                  getattr(self, f"bn_{i}"), pool)
             else:
                 i = op[1]
                 x = getattr(self, f"conv_{i}")(x)

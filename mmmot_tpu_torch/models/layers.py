@@ -74,10 +74,14 @@ class Conv3x3(nn.Conv2d):
         super().__init__(in_ch, out_ch, 3, padding=1)
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def product(self, x):
+        """The convolution without its bias, in the compute dtype."""
         dt = self.compute_dtype
-        y = F.conv2d(x.to(dt), self.weight.to(dt), None, padding=1)
-        return y + self.bias.to(dt)[:, None, None]
+        return F.conv2d(x.to(dt), self.weight.to(dt), None, padding=1)
+
+    def forward(self, x):
+        bias = self.bias.to(self.compute_dtype)
+        return self.product(x) + bias[:, None, None]
 
 
 class _TrainNorm(torch.autograd.Function):

@@ -1,5 +1,6 @@
 """Checks of the port that need an NVIDIA GPU (marker ``cuda``): the
-fused affinity and int8 conv CUDA kernels against their plain versions,
+fused affinity, int8 conv and conv-epilogue (``fused_bn_relu``) CUDA
+kernels against their plain versions,
 and CPU/GPU agreement of the tiny tracker (float and int8 trunks).  They
 skip without a GPU.  This file imports neither JAX nor the JAX package,
 so it runs on the GPU machine:
@@ -581,3 +582,183 @@ def test_int8_trunk_cpu_equals_gpu(gpu):
                                     mask)
     torch.testing.assert_close(fg.cpu(), fc, rtol=1e-4, atol=1e-5)
     assert (fg[10:] == 0).all()
+
+
+# Conv outputs [C, H] of VGG16's 13 layers at 224² (conv_0/1; 2/3; 4-6;
+# 7-9; 10-12), the space-to-depth stem's conv_0 (64 channels at 112²),
+# and two odd widths (20 channels: bfloat16 takes the kernel's
+# one-channel instance; 6: float32 does too) on odd maps (the pool drops
+# the last row and column).  Each runs with and without the pool.
+BN_RELU_SHAPES = [(64, 224), (128, 112), (256, 56), (512, 28), (512, 14),
+                  (64, 112), (20, 15), (6, 9)]
+
+
+def bn_relu_case(C, gen, dev, dtype):
+    """A ``Conv3x3`` (its bias drawn) and an eval ``MaskedBatchNorm`` with
+    running statistics far from 0 and 1, scales of both signs (negative
+    on every third channel) and shifts far from 0; channel 1 has mean 0,
+    shift -0.0 and a negative scale, so a conv output of exactly -bias
+    there gives -0.0 before the ReLU; channel 2 a subnormal scale and a
+    zero shift, so its outputs are subnormal."""
+    from mmmot_tpu_torch.models.layers import Conv3x3, MaskedBatchNorm
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    conv = Conv3x3(C, C, dtype).to(dev).eval()
+    bn = MaskedBatchNorm(C, dtype, dim=1).to(dev).eval()
+    with torch.no_grad():
+        conv.bias.copy_(10.0 * rnd(C))
+        bn.running_mean.copy_(40.0 * rnd(C) + 25.0)
+        bn.running_var.copy_(torch.exp(6.0 * rnd(C)))
+        bn.weight.copy_(3.0 * rnd(C))
+        bn.weight[::3] = -bn.weight[::3].abs()
+        bn.bias.copy_(5.0 * rnd(C) + 2.0)
+        bn.running_mean[1] = 0.0
+        bn.bias[1] = -0.0
+        bn.weight[1] = -1.5
+        bn.weight[2] = 1e-39
+        bn.bias[2] = 0.0
+    return conv, bn
+
+
+@torch.no_grad()
+def bn_relu_input(n, C, H, conv, bn, gen, dev, dtype):
+    """A conv output [n, C, H, H] (channels-last) around each channel's
+    BatchNorm mean (less the conv bias), so the ReLU keeps about half;
+    planted: ±0, float32 and bfloat16 subnormals, ±inf, NaN, and -bias on
+    channel 1 (see ``bn_relu_case``) beside a +0 in the same windows."""
+    sd = bn.running_var.sqrt()
+    y = (bn.running_mean - conv.bias)[:, None, None] + 2.0 * sd[
+        :, None, None] * torch.randn((n, C, H, H), generator=gen, device=dev)
+    flat = y.view(-1)
+    k = flat.numel()
+    idx = torch.randint(0, k, (9, max(1, k // 97)), generator=gen,
+                        device=dev)
+    for row, v in zip(idx, (0.0, -0.0, 1e-40, -1e-40, 1e-39, float("inf"),
+                            -float("inf"), float("nan"), -3e-41)):
+        flat[row] = v
+    y = y.to(dtype)
+    y[:, 1, :2, :2] = (-conv.bias[1]).to(dtype)
+    y[:, 1, :1, :1] = 0.0
+    return y.contiguous(memory_format=torch.channels_last)
+
+
+def bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool", [False, True])
+@pytest.mark.parametrize("shape", BN_RELU_SHAPES)
+def test_fused_bn_relu_bit_equal_to_chain(gpu, shape, pool, dtype):
+    """``fused_bn_relu`` against the trunk's op chain on the same conv
+    output (``Conv3x3.forward``'s bias add, the eval ``MaskedBatchNorm``,
+    ``torch.relu``, ``F.max_pool2d(x, 2)``): equal bits, planted ±0,
+    subnormals, ±inf and NaN included, for 1, 3 and 40 crops; one launch
+    counted per call, with the pool in ``pool_launches``."""
+    from torch.nn import functional as F
+
+    from mmmot_tpu_torch.kernels.bn_relu import fused_bn_relu, launch_counts
+
+    dt = getattr(torch, dtype)
+    C, H = shape
+    gen = torch.Generator(device=gpu).manual_seed(C * 1000 + H)
+    conv, bn = bn_relu_case(C, gen, gpu, dt)
+    for n in (1, 3, 40):
+        y = bn_relu_input(n, C, H, conv, bn, gen, gpu, dt)
+        conv.product = lambda _x, y=y: y     # the conv's output, as planted
+        with torch.inference_mode():
+            want = torch.relu(bn(conv(None)))
+            if pool:
+                want = F.max_pool2d(want, 2)
+            before = launch_counts()
+            got = fused_bn_relu(y, conv.bias, bn, pool)
+            torch.cuda.synchronize()
+        after = launch_counts()
+        assert {k: after[k] - before[k] for k in after} == {
+            "launches": 1, "pool_launches": int(pool)}
+        assert got.shape == want.shape and got.dtype == dt
+        assert got.is_contiguous(memory_format=torch.channels_last)
+        same = bits(got) == bits(want)
+        assert same.all(), (n, (~same).sum().item(), got[~same][:4],
+                            want[~same][:4])
+        assert (want > 0).float().mean() > 0.2
+        assert torch.isnan(want).any() and (want == 0).any()
+        if not pool:    # -0.0 reaches the ReLU on channel 1
+            with torch.inference_mode():
+                assert bn(conv(None))[:, 1, :2, :2].signbit().any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s2d", [False, True])
+def test_appearance_net_fused_equals_chain(gpu, s2d, dtype):
+    """A whole flagship ``AppearanceNet`` (VGG16-bn, skip pooling, 224²
+    crops; with ``s2d`` the space-to-depth stem) in eval mode: under
+    ``inference_mode`` every conv's epilogue takes ``fused_bn_relu``
+    (13 launches, 5 pooled; 4 with the stem, which replaces the first
+    pool), with gradients on it takes the op chain (no launch), and the
+    embeddings are bit-equal.  In train mode nothing launches."""
+    from mmmot_tpu_torch.config import full_mmmot
+    from mmmot_tpu_torch.kernels.bn_relu import launch_counts
+    from mmmot_tpu_torch.models.appearance import AppearanceNet
+    from mmmot_tpu_torch.models.layers import MaskedBatchNorm
+
+    dt = getattr(torch, dtype)
+    acfg = dataclasses.replace(full_mmmot().model.appearance, s2d_stem=s2d)
+    gen = torch.Generator(device=gpu).manual_seed(5)
+    net = AppearanceNet(acfg, dt).to(gpu)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, MaskedBatchNorm):
+                m.running_mean.normal_(0.0, 0.3, generator=gen)
+                m.running_var.normal_(generator=gen).exp_()
+                m.weight.normal_(generator=gen)
+                m.bias.normal_(1.0, 0.1, generator=gen)
+    crops = torch.randn((6, 224, 224, 3), generator=gen, device=gpu)
+    mask = torch.arange(6, device=gpu) < 5
+    net.eval()
+
+    def run():
+        before = launch_counts()
+        out = net(crops, mask)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        return out.detach(), {k: after[k] - before[k] for k in after}
+
+    with torch.inference_mode():
+        fused, n_fused = run()
+    chain, n_chain = run()
+    assert n_fused == {"launches": 13, "pool_launches": 4 if s2d else 5}
+    assert n_chain == {"launches": 0, "pool_launches": 0}
+    assert torch.equal(bits(fused), bits(chain))
+    net.train()
+    with torch.no_grad():
+        _, n_train = run()
+    assert n_train == {"launches": 0, "pool_launches": 0}
+
+
+def test_no_batch_norm_trunk_takes_the_chain(gpu):
+    """The VGG variant without BatchNorm, in eval mode under
+    ``inference_mode`` on the GPU: every conv takes the op chain
+    (``Conv3x3.forward``, ``relu``, ``F.max_pool2d``), so the kernel's
+    counters stay 0, and its embeddings equal the CPU's within float32
+    tolerance."""
+    from mmmot_tpu_torch.kernels.bn_relu import launch_counts
+    from mmmot_tpu_torch.models.appearance import AppearanceNet
+
+    acfg = dataclasses.replace(tiny_debug().model.appearance,
+                               batch_norm=False)
+    torch.manual_seed(6)
+    cpu = AppearanceNet(acfg, torch.float32).eval()
+    net = AppearanceNet(acfg, torch.float32).to(gpu).eval()
+    net.load_state_dict(cpu.state_dict())
+    crops = torch.randn((5, 32, 32, 3), generator=torch.Generator()
+                        .manual_seed(7))
+    before = launch_counts()
+    with torch.inference_mode(), f32_parity():
+        got = net(crops.to(gpu))
+        torch.cuda.synchronize()
+        want = cpu(crops)
+    assert launch_counts() == before
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
